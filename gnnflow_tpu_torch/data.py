@@ -1,0 +1,170 @@
+"""Synthetic datasets, negative sampling and batch iteration.
+
+Counterpart of ``gnnflow_tpu/data.py`` (``EdgeTable``,
+``make_synthetic_dataset``, ``DstRandEdgeSampler``, ``Batch``,
+``get_batches``).  The same seed gives byte-identical arrays, so both
+packages can run one stream.  The CSV loaders are not here: they need
+pandas, which the port does not import.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Iterator, Optional
+
+import numpy as np
+
+
+@dataclass
+class EdgeTable:
+    """A chronological edge list."""
+
+    src: np.ndarray   # int64 [E]
+    dst: np.ndarray   # int64 [E]
+    time: np.ndarray  # float32 [E]
+    eid: np.ndarray   # int64 [E]
+
+    def __len__(self) -> int:
+        return len(self.src)
+
+    def __getitem__(self, sl) -> "EdgeTable":
+        return EdgeTable(self.src[sl], self.dst[sl], self.time[sl],
+                         self.eid[sl])
+
+
+def make_synthetic_dataset(
+        num_src: int = 1000, num_dst: int = 200, num_edges: int = 20000,
+        dim_node: int = 0, dim_edge: int = 32, seed: int = 0,
+        train_frac: float = 0.70, val_frac: float = 0.15,
+        bipartite: bool = True, time_scale: float = 1.0,
+        recurrence: float = 0.8):
+    """Temporal-interaction stream with learnable structure (JODIE-like:
+    sources ``[0, num_src)`` revisit a few preferred destinations).
+
+    Returns ``(train, val, test, full, node_feats, edge_feats)``.
+    """
+    rng = np.random.RandomState(seed)
+    src = rng.randint(0, num_src, size=num_edges).astype(np.int64)
+
+    num_pref = 4
+    popularity = 1.0 / (np.arange(num_dst) + 1.0)
+    popularity /= popularity.sum()
+    pref = rng.choice(num_dst, size=(num_src, num_pref), p=popularity)
+
+    revisit = rng.rand(num_edges) < recurrence
+    pref_pick = pref[src, rng.randint(0, num_pref, size=num_edges)]
+    rand_pick = rng.choice(num_dst, size=num_edges, p=popularity)
+    dst = np.where(revisit, pref_pick, rand_pick).astype(np.int64)
+    if bipartite:
+        dst = dst + num_src
+
+    time = np.cumsum(rng.exponential(time_scale, size=num_edges)) \
+        .astype(np.float32)
+    eid = np.arange(num_edges, dtype=np.int64)
+
+    full = EdgeTable(src, dst, time, eid)
+    train_end = int(num_edges * train_frac)
+    val_end = int(num_edges * (train_frac + val_frac))
+
+    num_nodes = num_src + num_dst if bipartite else max(num_src, num_dst)
+    if dim_node > 0:
+        dst_base = rng.randn(num_dst, dim_node).astype(np.float32)
+        src_base = dst_base[pref].mean(axis=1)
+        noise = 0.1 * rng.randn(num_nodes, dim_node).astype(np.float32)
+        if bipartite:
+            node_feats = np.concatenate([src_base, dst_base]) + noise
+        else:
+            node_feats = noise
+            node_feats[:num_src] += src_base[:num_src]
+    else:
+        node_feats = None
+    if dim_edge > 0:
+        dst_emb = rng.randn(num_dst, dim_edge).astype(np.float32)
+        di = (dst - num_src) if bipartite else dst
+        # row chunks: randn consumes the stream in C order, so this equals
+        # one call without materializing the whole f64 intermediate
+        edge_feats = np.empty((num_edges, dim_edge), np.float32)
+        step = max(1, (1 << 24) // dim_edge)
+        for lo in range(0, num_edges, step):
+            hi = min(lo + step, num_edges)
+            edge_feats[lo:hi] = dst_emb[di[lo:hi]]
+            edge_feats[lo:hi] += (
+                0.1 * rng.randn(hi - lo, dim_edge)).astype(np.float32)
+    else:
+        edge_feats = None
+    return (full[:train_end], full[train_end:val_end], full[val_end:], full,
+            node_feats, edge_feats)
+
+
+class DstRandEdgeSampler:
+    """Uniformly sample negative destinations from the set of seen dsts."""
+
+    def __init__(self, dst_list, seed: Optional[int] = None):
+        self.dst_list = np.unique(dst_list)
+        self.random_state = np.random.RandomState(seed)
+
+    def sample(self, size: int) -> np.ndarray:
+        idx = self.random_state.randint(0, len(self.dst_list), size)
+        return self.dst_list[idx]
+
+
+@dataclass
+class Batch:
+    """One link-prediction batch: ``target_nodes`` is ``[src | dst | neg]``
+    (3B), ``ts`` the tripled timestamps.  Short slices are padded (node id
+    -1, eid 0) and ``num_valid < batch_size``."""
+
+    target_nodes: np.ndarray  # int64 [3B]
+    ts: np.ndarray            # float32 [3B]
+    eids: np.ndarray          # int64 [B]
+    num_valid: int            # valid positive edges (<= B)
+
+    @property
+    def batch_size(self) -> int:
+        return len(self.eids)
+
+
+def _pad_batch(src, dst, neg, ts, eid, batch_size: int) -> Batch:
+    n = len(src)
+    neg = np.atleast_2d(np.asarray(neg, dtype=np.int64))
+    if n < batch_size:
+        pad = batch_size - n
+        pad_nid = np.full(pad, -1, dtype=np.int64)
+        src = np.concatenate([src, pad_nid])
+        dst = np.concatenate([dst, pad_nid])
+        neg = np.concatenate(
+            [neg, np.full((neg.shape[0], pad), -1, np.int64)], axis=1)
+        ts = np.concatenate([ts, np.zeros(pad, dtype=np.float32)])
+        eid = np.concatenate([eid, np.zeros(pad, dtype=np.int64)])
+    r = neg.shape[0]
+    target_nodes = np.concatenate([src, dst, neg.reshape(-1)])
+    ts_all = np.tile(ts, 2 + r)
+    return Batch(target_nodes.astype(np.int64), ts_all.astype(np.float32),
+                 eid.astype(np.int64), n)
+
+
+def get_batches(data: EdgeTable, batch_size: int,
+                neg_sampler: Optional[DstRandEdgeSampler] = None,
+                num_chunks: int = 0,
+                rng: Optional[np.random.RandomState] = None
+                ) -> Iterator[Batch]:
+    """Iterate fixed-size batches over a chronological edge table.
+
+    ``num_chunks > 0`` skips a random multiple of ``batch_size //
+    num_chunks`` edges at the front (the reference's random epoch start).
+    The multi-rank splits of the JAX version come with the multi-GPU slice.
+    """
+    start = 0
+    if num_chunks > 0:
+        if rng is None:
+            rng = np.random.RandomState()
+        start = rng.randint(0, num_chunks) * (batch_size // num_chunks)
+    n = len(data)
+    for lo in range(start, n, batch_size):
+        sel = np.arange(lo, min(lo + batch_size, n))
+        k = len(sel)
+        if neg_sampler is not None:
+            neg = neg_sampler.sample(k).reshape(1, k)
+        else:
+            neg = np.full((1, k), -1, dtype=np.int64)
+        yield _pad_batch(data.src[sel], data.dst[sel], neg, data.time[sel],
+                         data.eid[sel], batch_size)

@@ -1,0 +1,320 @@
+"""Dynamic graph store: a NumPy host mirror plus a torch device view.
+
+Counterpart of ``gnnflow_tpu/dynamic_graph.py:78-545`` and of the NumPy
+fallbacks in ``gnnflow_tpu/csrc/__init__.py``.  Vertex ``v`` owns pool
+slots ``[row_off[v], row_off[v] + row_cap[v])`` holding ``row_len[v]``
+edges sorted by timestamp; a vertex whose region fills moves to a
+power-of-two region at the pool tail.  The host mirror is the source of
+truth; :meth:`DynamicGraph.device_graph` copies it to torch tensors.
+
+The TPU lane tricks (the interleaved triple pool and pair table) have no
+GPU meaning and are left out.  Eviction (``offload_old_blocks``),
+``compact`` and spilling come with a later slice.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from gnnflow_tpu_torch.common import resolve_device
+
+
+@dataclass
+class DeviceGraph:
+    """Device view of the store, consumed by the sampler.
+
+    ``search_iters`` bounds the per-root binary search: the bit length of
+    the largest vertex degree."""
+
+    row_off: torch.Tensor  # [N] int32 start slot of each vertex's region
+    row_len: torch.Tensor  # [N] int32 live edges in the region
+    e_dst: torch.Tensor    # [C] int32 neighbour ids, ts-sorted per vertex
+    e_ts: torch.Tensor     # [C] float32
+    e_eid: torch.Tensor    # [C] int32
+    search_iters: int = 32
+
+    @property
+    def node_capacity(self) -> int:
+        return self.row_off.shape[0]
+
+    @property
+    def pool_capacity(self) -> int:
+        return self.e_dst.shape[0]
+
+
+def _next_pow2(x: int) -> int:
+    return 1 if x <= 1 else 1 << (int(x) - 1).bit_length()
+
+
+def _exclusive_cumsum(x: np.ndarray) -> np.ndarray:
+    out = np.zeros_like(x)
+    np.cumsum(x[:-1], out=out[1:])
+    return out
+
+
+def _ranged_arange(counts: np.ndarray) -> np.ndarray:
+    """[0,1,..,c0-1, 0,1,..,c1-1, ...] for counts [c0, c1, ...]."""
+    total = int(counts.sum())
+    if total == 0:
+        return np.zeros(0, dtype=np.int64)
+    return (np.arange(total, dtype=np.int64)
+            - np.repeat(_exclusive_cumsum(counts), counts))
+
+
+def _resort_range(pool_ts: np.ndarray, pool_dst: np.ndarray,
+                  pool_eid: np.ndarray, off: int, length: int) -> None:
+    """Stable ts re-sort of one vertex range, in place."""
+    sl = slice(off, off + length)
+    perm = np.argsort(pool_ts[sl], kind="stable")
+    pool_ts[sl] = pool_ts[sl][perm]
+    pool_dst[sl] = pool_dst[sl][perm]
+    pool_eid[sl] = pool_eid[sl][perm]
+
+
+class DynamicGraph:
+    """Dynamic graph with incremental, time-ordered edge insertion.
+
+    A vertex whose region fills moves to a region of the next power of two
+    edges, at least ``minimum_block_size`` (the JAX package's default
+    ``insertion_policy="insert"`` with ``adaptive_block_size=True``)."""
+
+    def __init__(self, initial_pool_size: int = 1 << 20,
+                 maximum_pool_size: int = 1 << 26,
+                 minimum_block_size: int = 16):
+        self.minimum_block_size = int(max(1, minimum_block_size))
+        self.maximum_pool_size = int(maximum_pool_size)
+
+        cap = _next_pow2(max(int(initial_pool_size), 1024))
+        self._pool_cap = cap
+        self._dst = np.zeros(cap, dtype=np.int32)
+        self._ts = np.zeros(cap, dtype=np.float32)
+        self._eid = np.zeros(cap, dtype=np.int32)
+        self._pool_used = 0
+
+        ncap = 1024
+        self._node_cap = ncap
+        self._row_off = np.zeros(ncap, dtype=np.int64)
+        self._row_len = np.zeros(ncap, dtype=np.int64)
+        self._row_cap = np.zeros(ncap, dtype=np.int64)
+        self._node_seen = np.zeros(ncap, dtype=bool)
+        self._src_seen = np.zeros(ncap, dtype=bool)
+        self._max_vertex_id = -1
+
+        self._eid_seen = np.zeros(1024, dtype=bool)
+        self._num_unique_eids = 0
+        self._max_degree = 0
+
+    # -- capacity ------------------------------------------------------
+
+    def _ensure_node_capacity(self, max_id: int) -> None:
+        if max_id < self._node_cap:
+            return
+        new_cap = _next_pow2(max_id + 1)
+        for name in ("_row_off", "_row_len", "_row_cap",
+                     "_node_seen", "_src_seen"):
+            arr = getattr(self, name)
+            grown = np.zeros(new_cap, dtype=arr.dtype)
+            grown[: len(arr)] = arr
+            setattr(self, name, grown)
+        self._node_cap = new_cap
+
+    def _ensure_pool_capacity(self, extra: int) -> None:
+        need = self._pool_used + int(extra)
+        if need <= self._pool_cap:
+            return
+        new_cap = self._pool_cap
+        while new_cap < need:
+            new_cap *= 2
+        if new_cap > max(self.maximum_pool_size, self._pool_cap):
+            raise MemoryError(
+                f"edge pool would exceed maximum_pool_size "
+                f"({new_cap} > {self.maximum_pool_size} edges)")
+        for name in ("_dst", "_ts", "_eid"):
+            arr = getattr(self, name)
+            grown = np.zeros(new_cap, dtype=arr.dtype)
+            grown[: len(arr)] = arr
+            setattr(self, name, grown)
+        self._pool_cap = new_cap
+
+    def _ensure_eid_capacity(self, max_eid: int) -> None:
+        if max_eid < len(self._eid_seen):
+            return
+        grown = np.zeros(_next_pow2(max_eid + 1), dtype=bool)
+        grown[: len(self._eid_seen)] = self._eid_seen
+        self._eid_seen = grown
+
+    # -- insertion -----------------------------------------------------
+
+    def add_edges(self, source_vertices: np.ndarray,
+                  target_vertices: np.ndarray,
+                  timestamps: np.ndarray,
+                  eids: Optional[np.ndarray] = None,
+                  add_reverse: bool = False) -> None:
+        """Insert a batch of edges (need not be time-sorted).  eids default
+        to sequential ids from ``num_edges()``; ``add_reverse`` also
+        inserts every edge reversed, sharing its eid."""
+        src = np.asarray(source_vertices, dtype=np.int64).ravel()
+        dst = np.asarray(target_vertices, dtype=np.int64).ravel()
+        ts = np.asarray(timestamps, dtype=np.float32).ravel()
+        if not (len(src) == len(dst) == len(ts)):
+            raise ValueError(
+                "The number of source vertices, target vertices, and "
+                "timestamps must be the same.")
+        if len(src) == 0:
+            return
+        if (src < 0).any() or (dst < 0).any():
+            raise ValueError("vertex ids must be non-negative")
+
+        if eids is None:
+            start = self.num_edges()
+            eids = np.arange(start, start + len(src), dtype=np.int64)
+        else:
+            eids = np.asarray(eids, dtype=np.int64).ravel()
+
+        if add_reverse:
+            src, dst = (np.concatenate([src, dst]),
+                        np.concatenate([dst, src]))
+            ts = np.concatenate([ts, ts])
+            eids = np.concatenate([eids, eids])
+
+        self._ensure_eid_capacity(int(eids.max()))
+        uniq_eids = np.unique(eids)
+        self._num_unique_eids += int((~self._eid_seen[uniq_eids]).sum())
+        self._eid_seen[uniq_eids] = True
+
+        max_id = int(max(src.max(), dst.max()))
+        self._ensure_node_capacity(max_id)
+        self._max_vertex_id = max(self._max_vertex_id, max_id)
+        self._node_seen[src] = True
+        self._node_seen[dst] = True
+        self._src_seen[src] = True
+
+        # group by src, time-sorted within a group; stable, so equal
+        # (src, ts) pairs keep arrival order
+        order = np.lexsort((ts, src))
+        src, dst, ts, eids = src[order], dst[order], ts[order], eids[order]
+        uniq, first_idx, counts = np.unique(
+            src, return_index=True, return_counts=True)
+
+        old_len = self._row_len[uniq]
+        old_cap = self._row_cap[uniq]
+        old_off = self._row_off[uniq]
+        new_len = old_len + counts
+
+        # reallocate vertices whose region is too small
+        need = new_len > old_cap
+        if need.any():
+            vs = uniq[need]
+            grow_len = new_len[need]
+            caps = np.maximum(
+                self.minimum_block_size,
+                2 ** np.ceil(np.log2(np.maximum(grow_len, 1)))
+                .astype(np.int64))
+            total = int(caps.sum())
+            self._ensure_pool_capacity(total)
+            new_offs = self._pool_used + _exclusive_cumsum(caps)
+            lens = self._row_len[vs]
+            intra = _ranged_arange(lens)
+            src_idx = np.repeat(self._row_off[vs], lens) + intra
+            dst_idx = np.repeat(new_offs, lens) + intra
+            self._dst[dst_idx] = self._dst[src_idx]
+            self._ts[dst_idx] = self._ts[src_idx]
+            self._eid[dst_idx] = self._eid[src_idx]
+            self._row_off[vs] = new_offs
+            self._row_cap[vs] = caps
+            self._pool_used += total
+            old_off = self._row_off[uniq]
+
+        # append the new edges
+        write_pos = np.repeat(old_off + old_len, counts) \
+            + _ranged_arange(counts)
+        self._dst[write_pos] = dst
+        self._ts[write_pos] = ts
+        self._eid[write_pos] = eids
+        self._row_len[uniq] = new_len
+        self._max_degree = max(self._max_degree, int(new_len.max()))
+
+        # restore sortedness where the batch predates stored edges
+        had_old = old_len > 0
+        if had_old.any():
+            last_old_ts = self._ts[(old_off + old_len - 1)[had_old]]
+            first_new_ts = ts[first_idx[had_old]]
+            for j in np.flatnonzero(had_old)[first_new_ts < last_old_ts]:
+                v = uniq[j]
+                _resort_range(self._ts, self._dst, self._eid,
+                              int(self._row_off[v]), int(self._row_len[v]))
+
+    # -- introspection -------------------------------------------------
+
+    def num_vertices(self) -> int:
+        return int(self._node_seen.sum())
+
+    def num_source_vertices(self) -> int:
+        return int(self._src_seen.sum())
+
+    def max_vertex_id(self) -> int:
+        return self._max_vertex_id
+
+    def num_edges(self) -> int:
+        return self._num_unique_eids
+
+    def out_degree(self, vertices: np.ndarray) -> np.ndarray:
+        vertices = np.asarray(vertices, dtype=np.int64)
+        deg = np.zeros(len(vertices), dtype=np.int64)
+        ok = (vertices >= 0) & (vertices < self._node_cap)
+        deg[ok] = self._row_len[vertices[ok]]
+        return deg
+
+    def nodes(self) -> np.ndarray:
+        return np.flatnonzero(self._node_seen)
+
+    def src_nodes(self) -> np.ndarray:
+        return np.flatnonzero(self._src_seen)
+
+    def edges(self) -> np.ndarray:
+        return np.flatnonzero(self._eid_seen)
+
+    def get_temporal_neighbors(self, vertex: int) \
+            -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Neighbours of ``vertex``, newest first."""
+        if vertex < 0 or vertex >= self._node_cap:
+            z = np.zeros(0)
+            return z.astype(np.int64), z.astype(np.float32), \
+                z.astype(np.int64)
+        o = int(self._row_off[vertex])
+        sl = slice(o, o + int(self._row_len[vertex]))
+        return (self._dst[sl][::-1].astype(np.int64),
+                self._ts[sl][::-1].copy(),
+                self._eid[sl][::-1].astype(np.int64))
+
+    def avg_linked_list_length(self) -> float:
+        # every vertex's history is one contiguous run
+        return 1.0 if self.num_vertices() > 0 else 0.0
+
+    def get_graph_memory_usage(self) -> int:
+        itm = self._dst.itemsize + self._ts.itemsize + self._eid.itemsize
+        return int(self._pool_used * itm)
+
+    def get_metadata_memory_usage(self) -> int:
+        return int(self._row_off.nbytes + self._row_len.nbytes
+                   + self._row_cap.nbytes)
+
+    # -- device view ---------------------------------------------------
+
+    def device_graph(self, device="cuda") -> DeviceGraph:
+        """Copy the host mirror to ``device`` as a :class:`DeviceGraph`."""
+        dev = resolve_device(device)
+
+        def put(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+        return DeviceGraph(
+            row_off=put(self._row_off.astype(np.int32)),
+            row_len=put(self._row_len.astype(np.int32)),
+            e_dst=put(self._dst),
+            e_ts=put(self._ts),
+            e_eid=put(self._eid),
+            search_iters=max(1, self._max_degree.bit_length()))
