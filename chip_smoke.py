@@ -10,17 +10,26 @@ Phases (each prints one line; any failure raises and exits non-zero):
 2. build: compiles every CUDA kernel of the package from ``csrc/`` with
    ``nvcc`` (one process per source, in parallel) into ``build/``.
 3. kernels: each kernel against its plain PyTorch version at the shapes
-   the TGN main path gives it, in f32 and bf16, with the tolerance stated;
+   the TGN main paths give it, in f32 and bf16, with the tolerance stated;
    times the kernel, the plain version and, where one exists, a single
-   PyTorch library call computing the same function.
+   PyTorch library call computing the same function.  The GRU backward
+   (K2) must also give bit-identical gradients in two launches.
 4. slice: TGN streaming link-prediction inference (eval steps of batch
    4000) on a REDDIT-shaped synthetic stream at full width (memory, time
    and embedding dims 100, 2 heads, 172-dim edge features, fanout 10, bf16
-   compute, seeded random weights); every kernel's launch count must equal
-   the number of batches run.
-5. slice vs itself: the same batches of a small stream on the CPU (plain
-   versions) and on the card (kernels), same weights, logits and memory
-   table compared in f32 and bf16.
+   compute, seeded random weights); K1 and K3 launch once per batch.
+5. train: TGN training (train steps of batch 4000, dropout 0.2, attention
+   dropout 0.2, Adam at lr 1e-4) on the stream's train split at the same
+   width; K1 and K2 launch once per step and K3 never (training with
+   attention dropout routes around it).  Then a few steps at attention
+   dropout 0, where K3 and its backward run once per step.
+6. slice vs itself: the same batches of a small stream on the CPU (plain
+   versions) and on the card (kernels), same weights: eval logits and
+   memory, then train steps at dropout 0 (losses, gradients, parameters
+   and memory after each step), in f32 and bf16.  In bf16 the card takes
+   the CPU's state before each step, so every step is held from one
+   state; a free-running card run and a CPU run started from the card's
+   first step are reported beside it.
 
 Then one JSON line with every kernel's numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.
@@ -97,8 +106,9 @@ def phase_kernels(torch):
     """Kernel vs plain version at main-path shapes; returns JSON rows."""
     from gnnflow_tpu_torch.ops.attention_fused import (
         neighborhood_attention, neighborhood_attention_ref)
-    from gnnflow_tpu_torch.ops.gru_fused import (gru_memory_fused,
-                                                 gru_memory_fused_ref)
+    from gnnflow_tpu_torch.ops.gru_fused import (
+        gru_memory_fused, gru_memory_fused_bwd, gru_memory_fused_bwd_ref,
+        gru_memory_fused_ref)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
@@ -166,6 +176,74 @@ def phase_kernels(torch):
                      "[mail | cos(dts*tw+tb)] input; excludes the time "
                      "encoding",
         float32=k1["float32"]))
+
+    # ---- K2: the backward of K1 at the same shapes, dh [N, F] f32 --------
+    dh = torch.randn(n, f, **w)
+    # per gradient, max abs error over max abs value.  f32: sum order over
+    # 132,000 rows; bf16: both round da and tf to bf16, but a value that the
+    # recompute's sum order moves across a rounding boundary rounds to the
+    # neighbouring bf16 value (2^-8 relative) inside sums over all rows
+    k2_tol = {"float32": 1e-4, "bfloat16": 1e-3}
+    names = ("dki", "dbi", "dkh", "dbh", "dtw", "dtb")
+    k2 = {}
+    for name, (mem, mail, cd, _) in cases.items():
+        cdt = torch.bfloat16 if cd else torch.float32
+        args = (mem, mail, dts, ki.to(cdt), bi, kh.to(cdt), bh, tw, tb, dh,
+                cd)
+        got = gru_memory_fused_bwd(*args)
+        again = gru_memory_fused_bwd(*args)
+        torch.cuda.synchronize()
+        want = gru_memory_fused_bwd_ref(*args)
+        rel = {nm: _rel(g, w_) for nm, g, w_ in zip(names, got, want)}
+        err = max((g - w_).abs().max().item() for g, w_ in zip(got, want))
+        identical = all(torch.equal(g, a) for g, a in zip(got, again))
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        if not (max(rel.values()) <= k2_tol[name] and identical and finite):
+            raise AssertionError(f"K2 {name}: relative errors {rel} (tol "
+                                 f"{k2_tol[name]}), bit-identical reruns "
+                                 f"{identical}, finite {finite}")
+        ms = cuda_ms(torch, lambda: gru_memory_fused_bwd(*args))
+        plain_ms = cuda_ms(torch, lambda: gru_memory_fused_bwd_ref(*args))
+        # library yardstick: the autograd backward of torch.gru_cell on the
+        # pre-concatenated input, with respect to its weights (excludes
+        # the time encoding, as K1's)
+        x = torch.cat([mail.to(cdt), torch.cos(dts[:, None] * tw + tb)
+                       .to(cdt)], 1)
+        wi = ki.t().contiguous().to(cdt).requires_grad_()
+        wh = kh.t().contiguous().to(cdt).requires_grad_()
+        bic = bi.to(cdt).requires_grad_()
+        bhc = bh.to(cdt).requires_grad_()
+        out = torch.gru_cell(x, mem.to(cdt), wi, wh, bic, bhc)
+        dhc = dh.to(out.dtype)
+        library_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            out, (wi, wh, bic, bhc), dhc, retain_graph=True))
+        del out
+        nbytes = _nbytes(mem, mail, dts, dh, *got) + _nbytes(
+            ki.to(cdt), kh.to(cdt), bi, bh, tw, tb)
+        k_in = dr + dt
+        flops = 2.0 * n * ((k_in + f) * 3 * f        # recompute the gates
+                           + (k_in + f) * 3 * f      # dKi and dKh
+                           + 3 * f * dt)             # dtf
+        bound, by = _bound(nbytes, flops, name)
+        k2[name] = dict(max_abs_err=err, rel_err=rel, tol=k2_tol[name],
+                        bit_identical_reruns=identical, ms=ms,
+                        plain_ms=plain_ms, library_ms=library_ms,
+                        bound_ms=bound, bound_by=by)
+        _log("kernels", kernel="gru_memory_fused_bwd", dtype=name,
+             shape=[n, f, dr, dt], **k2[name])
+    rows.append(dict(
+        name="gru_memory_fused_bwd", route="cuda",
+        source="gnnflow_tpu_torch/csrc/gru_fused.cu",
+        replaces="gnnflow_tpu/ops/gru_pallas.py:210",
+        shapes={"mem": [n, f], "mail": [n, dr], "dts": [n], "dh": [n, f],
+                "ki": [dr + dt, 3 * f], "kh": [f, 3 * f]},
+        dtype="bfloat16", **{k: v for k, v in k2["bfloat16"].items()
+                            if k != "tol"},
+        library_note="autograd backward of torch.gru_cell on the "
+                     "pre-concatenated [mail | cos(dts*tw+tb)] input with "
+                     "respect to its weights and biases; excludes the time "
+                     "encoding",
+        float32=k2["float32"]))
 
     # ---- K3: B = 12,000 roots, F = 10, H = 2, dh = 50 ------------------
     B, F, H, dh = 12_000, 10, 2, 50
@@ -236,41 +314,65 @@ def _graph(full):
     return g
 
 
-def phase_slice(torch, kernels):
-    import numpy as np
-    from gnnflow_tpu_torch.data import (DstRandEdgeSampler, get_batches,
-                                        make_synthetic_dataset)
-    from gnnflow_tpu_torch.models.dgnn import DGNN
-    from gnnflow_tpu_torch.train import Trainer
-    from gnnflow_tpu_torch.utils import (average_precision_score,
-                                         roc_auc_score)
+def reddit_stream(torch):
+    """The REDDIT-shaped stream of bench.py:221-227, its graph (built from
+    every edge, as bench.py does) and edge features on the card."""
+    from gnnflow_tpu_torch.data import make_synthetic_dataset
     t0 = time.perf_counter()
-    # REDDIT-shaped stream of bench.py:221-227
-    _, _, _, full, _, ef_np = make_synthetic_dataset(
+    train, _, _, full, _, ef_np = make_synthetic_dataset(
         num_src=10_000, num_dst=984, num_edges=672_447, dim_node=128,
         dim_edge=172, seed=42, time_scale=4.0)
     t_data = time.perf_counter() - t0
     t0 = time.perf_counter()
     g = _graph(full)
     t_ingest = time.perf_counter() - t0
-    dg = g.device_graph("cuda")
-    ef = torch.from_numpy(ef_np).cuda()
+    return dict(train=train, full=full, g=g, dg=g.device_graph("cuda"),
+                ef=torch.from_numpy(ef_np).cuda(), data_s=t_data,
+                ingest_s=t_ingest)
+
+
+def _take(edges, batch_size, neg_dst, count):
+    from gnnflow_tpu_torch.data import DstRandEdgeSampler, get_batches
+    batches = []
+    for b in get_batches(edges, batch_size,
+                         DstRandEdgeSampler(neg_dst, seed=1)):
+        batches.append(b)
+        if len(batches) == count:
+            break
+    return batches
+
+
+def _reset(kernels) -> None:
+    for fn in kernels.values():
+        fn.launches = 0
+
+
+def _check_launches(launches, expected, what) -> None:
+    for name, n in launches.items():
+        if n != expected[name]:
+            raise AssertionError(f"{name} launched {n} times in {what}, "
+                                 f"expected {expected[name]}")
+
+
+def phase_slice(torch, kernels, stream):
+    import numpy as np
+    from gnnflow_tpu_torch.models.dgnn import DGNN
+    from gnnflow_tpu_torch.train import Trainer
+    from gnnflow_tpu_torch.utils import (average_precision_score,
+                                         roc_auc_score)
+    g, dg, ef = stream["g"], stream["dg"], stream["ef"]
     model = DGNN(dim_edge=172, compute_dtype="bfloat16", seed=0,
                  device="cuda", **TGN)
     trainer = Trainer(model, fanouts=[10], device="cuda")
     state = trainer.init_state(g.max_vertex_id() + 1)
     B, warm, runs = 4000, 3, 30
-    batches = []
-    for b in get_batches(full, B, DstRandEdgeSampler(full.dst, seed=1)):
-        batches.append(b)
-        if len(batches) == warm + runs:
-            break
+    full = stream["full"]
+    batches = _take(full, B, full.dst, warm + runs)
     for b in batches[:warm]:
         trainer.eval_step(state, dg, ef, b)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in kernels.values():
-        fn.launches = 0
+    _reset(kernels)
     pos_all, neg_all, losses = [], [], []
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -298,10 +400,10 @@ def phase_slice(torch, kernels):
     if not finite or len(pos) != runs * B:
         raise AssertionError("slice produced non-finite values or wrong "
                              "shapes")
-    for name, n in launches.items():
-        if n != runs:
-            raise AssertionError(f"{name} launched {n} times in {runs} "
-                                 "eval batches")
+    _check_launches(launches, {"gru_memory_fused": runs,
+                               "gru_memory_fused_bwd": 0,
+                               "neighborhood_attention": runs},
+                    f"{runs} eval batches")
     prof = _profile(torch, lambda b: trainer.eval_step(state, dg, ef, b),
                     batches[warm:warm + 5])
     result = dict(batches=runs, batch_size=B, ms_per_batch=ms,
@@ -312,10 +414,102 @@ def phase_slice(torch, kernels):
                   mean_loss=float(losses.mean()),
                   max_memory_allocated_mib=torch.cuda.max_memory_allocated()
                   / 2 ** 20,
-                  launches=launches, data_s=t_data, ingest_s=t_ingest,
+                  launches=launches, data_s=stream["data_s"],
+                  ingest_s=stream["ingest_s"],
                   graph_edges=g.num_edges(), nodes=g.max_vertex_id() + 1,
                   search_iters=dg.search_iters, profile=prof)
     _log("slice", **result)
+    return result
+
+
+def _all_finite(torch, state, model) -> bool:
+    mem = state.memory
+    return bool(torch.isfinite(mem.node_memory).all()
+                and torch.isfinite(mem.mailbox).all()
+                and all(torch.isfinite(p).all() for p in model.parameters()))
+
+
+def phase_train(torch, kernels, stream):
+    """Train steps of batch 4000 at the full config of bench.py:262-267 on
+    the stream's train split; then steps at attention dropout 0."""
+    from gnnflow_tpu_torch.models.dgnn import DGNN
+    from gnnflow_tpu_torch.ops.attention_fused import \
+        neighborhood_attention_autograd as attention_autograd
+    from gnnflow_tpu_torch.train import Trainer
+    g, dg, ef, train = stream["g"], stream["dg"], stream["ef"], \
+        stream["train"]
+    B, warm, runs, extra = 4000, 3, 30, 5
+    batches = _take(train, B, train.dst, warm + runs + 5 + extra)
+    model = DGNN(dim_edge=172, compute_dtype="bfloat16", seed=0,
+                 device="cuda", **TGN)
+    trainer = Trainer(model, fanouts=[10], lr=1e-4, device="cuda")
+    state = trainer.init_state(g.max_vertex_id() + 1, seed=0)
+    for b in batches[:warm]:
+        trainer.train_step(state, dg, ef, b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(kernels)
+    losses = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t_host = time.perf_counter()
+    start.record()
+    for b in batches[warm:warm + runs]:
+        _, loss, _, _ = trainer.train_step(state, dg, ef, b)
+        losses.append(loss)
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t_host
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    ms = start.elapsed_time(end) / runs
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    losses = torch.stack(losses).cpu()
+    if not (bool(torch.isfinite(losses).all())
+            and _all_finite(torch, state, model)):
+        raise AssertionError("training produced a non-finite loss, "
+                             "parameter or memory value")
+    _check_launches(launches, {"gru_memory_fused": runs,
+                               "gru_memory_fused_bwd": runs,
+                               "neighborhood_attention": 0},
+                    f"{runs} train steps at att_dropout=0.2")
+    prof = _profile(torch, lambda b: trainer.train_step(state, dg, ef, b),
+                    batches[warm + runs:warm + runs + 5])
+
+    # attention dropout 0: the layer takes K3, and its backward runs
+    model0 = DGNN(dim_edge=172, compute_dtype="bfloat16", seed=0,
+                  device="cuda", **{**TGN, "att_dropout": 0.0})
+    trainer0 = Trainer(model0, fanouts=[10], lr=1e-4, device="cuda")
+    state0 = trainer0.init_state(g.max_vertex_id() + 1, seed=0)
+    _reset(kernels)
+    bwd0 = attention_autograd.backward_calls
+    losses0 = [trainer0.train_step(state0, dg, ef, b)[1]
+               for b in batches[-extra:]]
+    torch.cuda.synchronize()
+    launches0 = {name: fn.launches for name, fn in kernels.items()}
+    att_bwd = attention_autograd.backward_calls - bwd0
+    losses0 = torch.stack(losses0).cpu()
+    if not (bool(torch.isfinite(losses0).all())
+            and _all_finite(torch, state0, model0)):
+        raise AssertionError("training at att_dropout=0 produced a "
+                             "non-finite value")
+    _check_launches(launches0, {"gru_memory_fused": extra,
+                                "gru_memory_fused_bwd": extra,
+                                "neighborhood_attention": extra},
+                    f"{extra} train steps at att_dropout=0")
+    if att_bwd != extra:
+        raise AssertionError(f"K3's backward ran {att_bwd} times in "
+                             f"{extra} train steps at att_dropout=0")
+    result = dict(steps=runs, batch_size=B, ms_per_step=ms,
+                  host_ms_per_step=host_s * 1e3 / runs,
+                  edges_per_s=B / (ms / 1e3),
+                  loss_first5=float(losses[:5].mean()),
+                  loss_last5=float(losses[-5:].mean()),
+                  max_memory_allocated_mib=peak_mib, launches=launches,
+                  att_dropout0=dict(steps=extra, launches=launches0,
+                                    attention_backward_calls=att_bwd,
+                                    losses=losses0.tolist()),
+                  profile=prof)
+    _log("train", **result)
     return result
 
 
@@ -360,8 +554,46 @@ def _profile(torch, step, batches, top: int = 10):
                 ops_by_host_ms=[[k, h, c] for k, _, h, c in by_host])
 
 
-def phase_self_check(torch):
-    """CPU (plain versions) vs card (kernels) on the same batches."""
+def _rel(a, b) -> float:
+    """max |a - b| over max |b| (0 when both are 0)."""
+    scale = b.abs().max().item()
+    err = (a - b).abs().max().item()
+    return err / scale if scale > 0 else err
+
+
+def _copy_train_state(src, dst) -> None:
+    """Copy run ``src``'s parameters, Adam moments and memory into run
+    ``dst`` (across devices) and remake ``dst``'s weight copies."""
+    for p_s, p_d in zip(src["model"].parameters(), dst["model"].parameters()):
+        p_d.detach().copy_(p_s.detach())
+        for k, v in src["st"].optimizer.state[p_s].items():
+            dst["st"].optimizer.state[p_d][k].copy_(v)
+    for f in ("node_memory", "node_memory_ts", "mailbox", "mailbox_ts"):
+        getattr(dst["st"].memory, f).copy_(getattr(src["st"].memory, f))
+    dst["model"].cast_weights()
+
+
+def _trace_errs(a, b, pnames):
+    """Per step of two train traces: loss (abs), the worst parameter's
+    gradient error (max abs error over max abs value) and that parameter,
+    parameters (abs) and memory (abs)."""
+    errs = {k: [] for k in ("loss", "grad", "param", "memory")}
+    worst = []
+    for x, y in zip(a, b):
+        errs["loss"].append((x["loss"] - y["loss"]).abs().item())
+        rel = {nm: _rel(gy, gx) for nm, gx, gy in
+               zip(pnames, x["grad"], y["grad"])}
+        worst.append(max(rel, key=rel.get))
+        errs["grad"].append(rel[worst[-1]])
+        errs["param"].append(max((px - py).abs().max().item()
+                                 for px, py in zip(x["param"], y["param"])))
+        errs["memory"].append((x["memory"] - y["memory"]).abs().max().item())
+    return errs, worst
+
+
+def phase_self_check(torch, card: str = "cuda"):
+    """CPU (plain versions) vs card (kernels) on the same batches: eval
+    steps, then train steps at dropout 0 from the same weights."""
     from gnnflow_tpu_torch.data import (DstRandEdgeSampler, get_batches,
                                         make_synthetic_dataset)
     from gnnflow_tpu_torch.models.dgnn import DGNN
@@ -370,40 +602,134 @@ def phase_self_check(torch):
         num_src=400, num_dst=80, num_edges=6000, dim_edge=172, seed=7,
         time_scale=4.0)
     g = _graph(full)
-    # f32: TF32 is off, so only sum order differs; bf16: a matmul output
-    # one bf16 ulp apart (CPU vs cuBLAS accumulation) feeds the next
-    # layers and the next batch's memory
+    num_nodes = g.max_vertex_id() + 1
+    graphs = {d: g.device_graph(d) for d in ("cpu", card)}
+    efs = {d: torch.from_numpy(ef_np).to(d) for d in ("cpu", card)}
+    # eval: f32: TF32 is off, so only sum order differs; bf16: a matmul
+    # output one bf16 ulp apart (CPU vs cuBLAS accumulation) feeds the
+    # next layers and the next batch's memory
     tols = {"float32": 1e-4, "bfloat16": 2e-2}
-    out = {}
+    # train, per step: loss (abs), gradients (max abs error over max abs
+    # value, per parameter), parameters (abs) and memory (abs).  f32 runs
+    # free for all steps: sum order only, and Adam moves parameters alike
+    # when gradients agree to ~1e-6 relative.  bf16: a gradient within bf16
+    # noise of zero can take an Adam step of +lr on one side and -lr on the
+    # other, and free runs then take later gradients at different points.
+    # So before each bf16 step the card takes the CPU's parameters, Adam
+    # moments and memory, and every step is held from one state: the eval
+    # reasons for loss, gradients and memory; parameters part by at most
+    # ~2 lr in one step
+    lr, steps = 1e-4, 4
+    train_tols = {"float32": dict(loss=1e-4, grad=1e-4, param=1e-5,
+                                  memory=1e-4),
+                  "bfloat16": dict(loss=2e-2, grad=2e-2, param=3e-4,
+                                   memory=2e-2)}
+    cfg = {**TGN, "dropout": 0.0, "att_dropout": 0.0}
+    out, failed = {}, []
     for cd, tol in tols.items():
-        res = {}
-        for device in ("cpu", "cuda"):
+        ev = {}
+        for device in ("cpu", card):
             model = DGNN(dim_edge=172, compute_dtype=cd, seed=1,
                          device=device, **TGN)
             tr = Trainer(model, fanouts=[10], device=device)
-            st = tr.init_state(g.max_vertex_id() + 1)
-            dg = g.device_graph(device)
-            ef = torch.from_numpy(ef_np).to(device)
+            st = tr.init_state(num_nodes)
             logits, mems = [], []
             neg = DstRandEdgeSampler(full.dst, seed=3)
             for i, b in enumerate(get_batches(full, 500, neg)):
                 if i == 4:
                     break
-                _, _, p, n = tr.eval_step(st, dg, ef, b)
+                _, _, p, n = tr.eval_step(st, graphs[device], efs[device], b)
                 logits.append(torch.cat([p, n]).float().cpu())
                 mems.append(torch.cat([st.memory.node_memory,
                                        st.memory.mailbox], 1).cpu())
-            res[device] = (logits, mems, st.memory.node_memory_ts.cpu())
-        err_l = max((a - b).abs().max().item()
-                    for a, b in zip(res["cpu"][0], res["cuda"][0]))
-        err_m = max((a - b).abs().max().item()
-                    for a, b in zip(res["cpu"][1], res["cuda"][1]))
-        ts_equal = bool(torch.equal(res["cpu"][2], res["cuda"][2]))
-        out[cd] = dict(logits_max_abs_err=err_l, memory_max_abs_err=err_m,
-                       memory_ts_equal=ts_equal, tol=tol)
+            ev[device] = (logits, mems, st.memory.node_memory_ts.cpu())
+        (cl, cm, cts), (gl, gm, gts) = ev["cpu"], ev[card]
+        err_l = max((a - b).abs().max().item() for a, b in zip(cl, gl))
+        err_m = max((a - b).abs().max().item() for a, b in zip(cm, gm))
+        ts_equal = bool(torch.equal(cts, gts))
+        ev = dict(logits_max_abs_err=err_l, memory_max_abs_err=err_m,
+                  memory_ts_equal=ts_equal, tol=tol)
         if not (err_l <= tol and err_m <= tol and ts_equal):
-            raise AssertionError(f"CPU vs card ({cd}): {out[cd]}")
-    _log("self_check", batches=4, batch_size=500, **out)
+            failed.append(f"eval {cd}")
+
+        # runs in lockstep.  bf16 adds two reported runs: "card_free" runs
+        # free beside the held card run, and "cpu_nudged" runs on the CPU
+        # from card_free's state after the first step, so it parts from
+        # "cpu" through the first step's parameter difference alone
+        bf16 = cd == "bfloat16"
+        names = ["cpu", "card"] + (["card_free", "cpu_nudged"] if bf16
+                                   else [])
+        runs = {}
+        for nm in names:
+            device = "cpu" if nm.startswith("cpu") else card
+            model = DGNN(dim_edge=172, compute_dtype=cd, seed=1,
+                         device=device, **cfg)
+            tr = Trainer(model, fanouts=[10], lr=lr, device=device)
+            runs[nm] = dict(model=model, tr=tr, st=tr.init_state(num_nodes),
+                            device=device, trace=[])
+        neg = DstRandEdgeSampler(full.dst, seed=4)
+        for i, b in enumerate(get_batches(full, 500, neg)):
+            if i == steps:
+                break
+            for r in runs.values():
+                model, st = r["model"], r["st"]
+                _, loss, _, _ = r["tr"].train_step(
+                    st, graphs[r["device"]], efs[r["device"]], b)
+                r["trace"].append(dict(
+                    loss=loss.float().cpu(),
+                    grad=[q.grad.float().cpu() for q in model.parameters()],
+                    param=[q.detach().cpu().clone()
+                           for q in model.parameters()],
+                    memory=torch.cat([st.memory.node_memory,
+                                      st.memory.mailbox], 1).cpu()))
+            if bf16:
+                _copy_train_state(runs["cpu"], runs["card"])
+                if i == 0:
+                    _copy_train_state(runs["card_free"], runs["cpu_nudged"])
+        pnames = [nm for nm, _ in runs["cpu"]["model"].named_parameters()]
+        tt = train_tols[cd]
+        errs, worst = _trace_errs(runs["cpu"]["trace"], runs["card"]["trace"],
+                                  pnames)
+        train_ts_equal = bool(torch.equal(
+            runs["cpu"]["st"].memory.node_memory_ts,
+            runs["card"]["st"].memory.node_memory_ts.cpu()))
+        finite = all(bool(torch.isfinite(x).all())
+                     for s_ in runs["card"]["trace"]
+                     for x in s_["grad"] + s_["param"] + [s_["memory"]])
+        tr_out = dict(steps=steps, state_synced_before_each_step=bf16,
+                      per_step_max_err=errs, worst_grad_parameter=worst,
+                      tol=tt, memory_ts_equal=train_ts_equal, finite=finite)
+        if bf16:
+            # the first step's parameter elements more than lr apart
+            # between cpu and card_free, and their largest gradient
+            # relative to the largest of their parameter
+            c0, f0 = runs["cpu"]["trace"][0], runs["card_free"]["trace"][0]
+            apart, apart_grad = 0, 0.0
+            for gr, x, y in zip(c0["grad"], c0["param"], f0["param"]):
+                m = (x - y).abs() > lr
+                apart += int(m.sum())
+                if m.any():
+                    apart_grad = max(apart_grad, (gr[m].abs().max()
+                                                  / gr.abs().max()).item())
+            free, free_worst = _trace_errs(runs["cpu"]["trace"],
+                                           runs["card_free"]["trace"], pnames)
+            nudged, nudged_worst = _trace_errs(
+                runs["cpu"]["trace"], runs["cpu_nudged"]["trace"], pnames)
+            tr_out["reported"] = dict(
+                first_step_elements_apart_by_more_than_lr=apart,
+                parameter_elements=sum(p.numel() for p in c0["param"]),
+                their_max_relative_grad=apart_grad,
+                free_card_vs_cpu=dict(per_step_max_err=free,
+                                      worst_grad_parameter=free_worst),
+                nudged_cpu_vs_cpu=dict(per_step_max_err=nudged,
+                                       worst_grad_parameter=nudged_worst))
+        if not (all(max(errs[k]) <= tt[k] for k in tt) and train_ts_equal
+                and finite):
+            failed.append(f"train {cd}")
+        out[cd] = dict(eval=ev, train=tr_out)
+    _log("self_check", eval_batches=4, batch_size=500, **out)
+    if failed:
+        raise AssertionError(f"CPU vs card: {failed} beyond tolerance")
 
 
 def main() -> int:
@@ -412,15 +738,23 @@ def main() -> int:
     import gnnflow_tpu_torch  # noqa: F401  (fails outside a checkout)
     dev = phase_device(torch)
     from gnnflow_tpu_torch.ops.attention_fused import neighborhood_attention
-    from gnnflow_tpu_torch.ops.gru_fused import gru_memory_fused
+    from gnnflow_tpu_torch.ops.gru_fused import (gru_memory_fused,
+                                                 gru_memory_fused_bwd)
     phase_build()
     rows = phase_kernels(torch)
     kernels = {"gru_memory_fused": gru_memory_fused,
+               "gru_memory_fused_bwd": gru_memory_fused_bwd,
                "neighborhood_attention": neighborhood_attention}
-    sl = phase_slice(torch, kernels)
+    stream = reddit_stream(torch)
+    sl = phase_slice(torch, kernels, stream)
+    tr = phase_train(torch, kernels, stream)
+    # launches on each main path, counted from 0 just before it: eval
+    # batches, train steps at att_dropout 0.2, train steps at 0
+    paths = {"eval": sl["launches"], "train": tr["launches"],
+             "train_att_dropout0": tr["att_dropout0"]["launches"]}
     for row in rows:
-        row["launches"] = sl["launches"][row["name"]]
-        row["launches_per_batch"] = row["launches"] / sl["batches"]
+        row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
     phase_self_check(torch)
     print(json.dumps({"kernels": rows, "card": dev["smi"]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -81,7 +81,8 @@ class GRUMemoryUpdater(nn.Module):
     ``h = GRU(mem, [mail | TimeEncode(dts)])`` in the fused kernel.
 
     Returns ``(h, last_updated)``; ``last_updated`` holds the node ids,
-    updated memory and timestamps of the dst rows for write-back."""
+    updated memory and timestamps of the dst rows for write-back, detached
+    from autograd (``memory.py:583-589``)."""
 
     def __init__(self, dim_edge: int, dim_time: int, dim_memory: int,
                  gen: torch.Generator,
@@ -104,7 +105,7 @@ class GRUMemoryUpdater(nn.Module):
         b = mfg.num_dst
         last_updated = {
             "last_updated_nid": mfg.root_nids,
-            "last_updated_memory": updated[:b],
+            "last_updated_memory": updated[:b].detach(),
             "last_updated_ts": all_ts[:b],
         }
         return updated, last_updated

@@ -1,4 +1,5 @@
-"""Carry a Flax parameter tree of ``gnnflow_tpu``'s DGNN into the port.
+"""Carry a Flax parameter tree of ``gnnflow_tpu``'s DGNN into the port,
+and the port's parameters back out as such a tree.
 
 The Flax tree (nested dicts of arrays, kernels ``[in, out]``) maps onto the
 port's parameter names one for one after renaming the auto-named Flax
@@ -21,6 +22,7 @@ from gnnflow_tpu_torch.models.dgnn import DGNN
 
 _RENAME = {"FusedGRUCell_0": "cell", "TimeEncode_0": "time_enc",
            "LayerNorm_0": "layer_norm"}
+_FLAX_NAME = {v: k for k, v in _RENAME.items()}
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -42,6 +44,16 @@ def _port_name(path: tuple) -> str:
     return ".".join(parts)
 
 
+def _flax_path(name: str) -> tuple:
+    """Inverse of :func:`_port_name`."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        parts = parts[1:]
+    if len(parts) >= 2 and parts[-2] == "layer_norm" and parts[-1] == "weight":
+        parts[-1] = "scale"
+    return tuple(_FLAX_NAME.get(p, p) for p in parts)
+
+
 @torch.no_grad()
 def load_flax_params(model: DGNN, tree: Mapping) -> None:
     """Copy a Flax DGNN parameter tree (nested dicts of numpy arrays) into
@@ -61,3 +73,17 @@ def load_flax_params(model: DGNN, tree: Mapping) -> None:
             raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
         p.copy_(torch.tensor(np.asarray(arr, dtype=np.float32)))
     model.cast_weights()
+
+
+def flax_param_tree(model: DGNN) -> Dict[str, dict]:
+    """The model's parameters as a Flax DGNN parameter tree (nested dicts
+    of f32 numpy arrays, Flax names): the inverse of
+    :func:`load_flax_params`."""
+    tree: Dict[str, dict] = {}
+    for name, p in model.named_parameters():
+        path = _flax_path(name)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = p.detach().cpu().numpy().copy()
+    return tree

@@ -1,10 +1,13 @@
-"""Fused masked neighbourhood attention (forward).
+"""Fused masked neighbourhood attention.
 
 Counterpart of ``gnnflow_tpu/ops/attention_pallas.py``
-(``neighborhood_attention``, forward; its backward comes with the
-training slice).  :func:`neighborhood_attention` launches the CUDA kernel
+(``neighborhood_attention`` and its custom VJP).
+:func:`neighborhood_attention` launches the CUDA kernel
 ``csrc/attention_fused.cu`` for CUDA tensors and runs
-:func:`neighborhood_attention_ref` for CPU tensors.
+:func:`neighborhood_attention_ref` for CPU tensors;
+:func:`neighborhood_attention_autograd` adds the backward, which recomputes
+through the plain version as the TPU op's VJP does (``:145-161``: XLA
+there, no Pallas kernel).
 """
 from __future__ import annotations
 
@@ -92,6 +95,37 @@ def neighborhood_attention(q, k, v, mask) -> torch.Tensor:
 
 
 neighborhood_attention.launches = 0
+
+
+class _NeighborhoodAttention(torch.autograd.Function):
+    """K3 forward; the backward differentiates the plain version on the
+    saved inputs (``attention_pallas.py:150-158``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        ctx.save_for_backward(q, k, v, mask)
+        return neighborhood_attention(q, k, v, mask)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, mask = ctx.saved_tensors
+        neighborhood_attention_autograd.backward_calls += 1
+        with torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+            out = neighborhood_attention_ref(q, k, v, mask)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
+        return dq, dk, dv, None
+
+
+def neighborhood_attention_autograd(q, k, v, mask) -> torch.Tensor:
+    """:func:`neighborhood_attention` with gradients for q, k and v; rows
+    with no valid slot get zero gradients.
+    ``neighborhood_attention_autograd.backward_calls`` counts backward
+    passes."""
+    return _NeighborhoodAttention.apply(q, k, v, mask)
+
+
+neighborhood_attention_autograd.backward_calls = 0
 
 
 def _lib():

@@ -16,6 +16,13 @@ Tolerances:
 - attention f32: 1e-5 (tests/test_attention_pallas.py).
 - attention bf16: 5e-2 abs + 5e-2 rel.  The Pallas kernel multiplies and
   sums q*k in bf16; the port accumulates in f32.
+- GRU backward, per gradient, as max abs error over max abs value: f32
+  1e-5 (sum order over 700 rows; dts < 100 as above, for sin); bf16 1e-3.
+  Both sides round the same da to bf16, but a da that the forward's sum
+  order moves across a bf16 rounding boundary, or a tf moved there by the
+  FMA above, rounds to the neighbouring bf16 value (2^-8 relative), and
+  each gradient sums such products over all rows.
+- attention backward f32: 1e-5 (the same plain ops on both sides).
 """
 from types import SimpleNamespace
 
@@ -25,9 +32,13 @@ import torch
 
 from gnnflow_tpu_torch.models.modules import masked_softmax
 from gnnflow_tpu_torch.ops.attention_fused import (
-    neighborhood_attention, neighborhood_attention_ref)
-from gnnflow_tpu_torch.ops.gru_fused import (gru_memory_fused,
-                                             gru_memory_fused_ref)
+    neighborhood_attention, neighborhood_attention_autograd,
+    neighborhood_attention_ref)
+from gnnflow_tpu_torch.ops.gru_fused import (
+    gru_memory_fused, gru_memory_fused_autograd, gru_memory_fused_bwd,
+    gru_memory_fused_bwd_ref, gru_memory_fused_ref)
+
+GRAD_NAMES = ("dki", "dbi", "dkh", "dbh", "dtw", "dtb")
 
 
 def _gru_inputs(n, f=100, dr=372, dt=100, seed=0):
@@ -70,11 +81,13 @@ def one_cpu_thread():
 def jref():
     """The JAX package's kernels (JAX is absent on the card's machine)."""
     pytest.importorskip("jax")
+    import jax
     import jax.numpy as jnp
     from gnnflow_tpu.models.modules import masked_softmax
     from gnnflow_tpu.ops.attention_pallas import neighborhood_attention
-    from gnnflow_tpu.ops.gru_pallas import gru_memory_fused
-    return SimpleNamespace(jnp=jnp, gru=gru_memory_fused,
+    from gnnflow_tpu.ops.gru_pallas import _call_bwd, gru_memory_fused
+    return SimpleNamespace(jax=jax, jnp=jnp, gru=gru_memory_fused,
+                           gru_bwd=_call_bwd,
                            attention=neighborhood_attention,
                            masked_softmax=masked_softmax)
 
@@ -103,6 +116,85 @@ def test_gru_ref_matches_pallas(jref, n, case):
     np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
     # on the CPU the wrapper is the plain version
     assert torch.equal(gru_memory_fused(*targs, cd), got)
+
+
+def _rel_err(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("case", list(GRU_CASES))
+def test_gru_bwd_ref_matches_pallas(jref, case):
+    """K2's plain version against the Pallas backward kernel, with 700
+    rows: one whole 512-row tile and one ragged tile."""
+    jnp = jref.jnp
+    cd, state_dtype, _ = GRU_CASES[case]
+    tol = 1e-5 if cd is None else 1e-3
+    n = 700
+    args = _gru_inputs(n, seed=3)
+    dh = (np.random.RandomState(4).randn(n, 100)).astype(np.float32)
+    jargs = [jnp.asarray(a) for a in args]
+    targs = [torch.from_numpy(a) for a in args]
+    if state_dtype == "bf16":
+        jargs[:2] = [a.astype(jnp.bfloat16) for a in jargs[:2]]
+        targs[:2] = [a.bfloat16() for a in targs[:2]]
+    want = jref.gru_bwd(*jargs, jnp.asarray(dh), cd, 512, True)
+    got = gru_memory_fused_bwd_ref(*targs, torch.from_numpy(dh), cd)
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        assert _rel_err(g.numpy(), w) <= tol, (name, _rel_err(g.numpy(), w))
+    # on the CPU the wrapper is the plain version
+    for g, w in zip(gru_memory_fused_bwd(*targs, torch.from_numpy(dh), cd),
+                    got):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("cd", [None, "bfloat16"])
+def test_gru_autograd_reaches_parameters_only(cd):
+    """The autograd function gives the f32 parameters K2's gradients and
+    mem, mail and dts none (gru_pallas.py:33-38)."""
+    args = [torch.from_numpy(a) for a in _gru_inputs(300, seed=5)]
+    mem, mail, dts, ki, bi, kh, bh, tw, tb = args
+    for t in args:
+        t.requires_grad_()
+    cdt = getattr(torch, cd) if cd else torch.float32
+    ki_c, kh_c = ki.detach().to(cdt), kh.detach().to(cdt)
+    h = gru_memory_fused_autograd(mem, mail, dts, ki, bi, kh, bh, tw, tb,
+                                  ki_c, kh_c, cd)
+    dh = torch.from_numpy(np.random.RandomState(6).randn(300, 100)
+                          .astype(np.float32))
+    h.backward(dh)
+    assert mem.grad is None and mail.grad is None and dts.grad is None
+    want = gru_memory_fused_bwd_ref(*[a.detach() for a in args], dh, cd)
+    for name, p, w in zip(GRAD_NAMES, (ki, bi, kh, bh, tw, tb), want):
+        assert p.grad.dtype == torch.float32, name
+        assert torch.equal(p.grad, w), name
+    with torch.no_grad():
+        assert torch.equal(h, gru_memory_fused_ref(
+            *[a.detach() for a in args], cd))
+
+
+def test_attention_backward_matches_jax_vjp(jref):
+    """dq, dk, dv of the autograd function (CPU: the plain version) against
+    jax.vjp of the Pallas op in interpret mode; fully masked rows get zero
+    gradients and no NaN."""
+    jnp = jref.jnp
+    q, k, v, mask = _attention_inputs(B=200)
+    mask[7] = False
+    dout = np.random.RandomState(9).randn(*q.shape).astype(np.float32)
+    _, vjp = jref.jax.vjp(lambda a, b, c: jref.attention(
+        a, b, c, jnp.asarray(mask), True), jnp.asarray(q), jnp.asarray(k),
+        jnp.asarray(v))
+    want = vjp(jnp.asarray(dout))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = neighborhood_attention_autograd(tq, tk, tv, torch.from_numpy(mask))
+    out.backward(torch.from_numpy(dout))
+    for name, t, w in zip(("dq", "dk", "dv"), (tq, tk, tv), want):
+        g = t.grad.numpy()
+        assert np.isfinite(g).all(), name
+        np.testing.assert_allclose(g, np.asarray(w), rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
+        assert not g[3].any() and not g[7].any(), name
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
@@ -188,3 +280,32 @@ def test_attention_kernel_matches_plain_on_card(cuda, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol[0],
                                atol=tol[1])
     assert not got[3].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GRU_CASES))
+def test_gru_bwd_kernel_matches_plain_on_card(cuda, case):
+    """K2 against its plain version on the card, at dts up to ~2.7e6, and
+    two launches bit-identical (no float atomics)."""
+    cd, state_dtype, _ = GRU_CASES[case]
+    args = [torch.from_numpy(a).to(cuda) for a in _gru_inputs(1000, seed=2)]
+    args[2][::7] *= 2.7e4
+    if state_dtype == "bf16":
+        args[:2] = [a.bfloat16() for a in args[:2]]
+    if cd is not None:
+        cdt = getattr(torch, cd)
+        args[3], args[5] = args[3].to(cdt), args[5].to(cdt)
+    dh = torch.randn(1000, 100, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(1))
+    before = gru_memory_fused_bwd.launches
+    got = gru_memory_fused_bwd(*args, dh, cd)
+    again = gru_memory_fused_bwd(*args, dh, cd)
+    torch.cuda.synchronize()
+    assert gru_memory_fused_bwd.launches == before + 2
+    want = gru_memory_fused_bwd_ref(*args, dh, cd)
+    # f32: sum order; bf16: neighbouring bf16 roundings of da and tf
+    tol = 1e-4 if cd is None else 1e-3
+    for name, g, a, w in zip(GRAD_NAMES, got, again, want):
+        assert torch.equal(g, a), name
+        err = ((g - w).abs().max() / w.abs().max()).item()
+        assert err <= tol, (name, err)

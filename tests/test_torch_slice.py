@@ -45,10 +45,10 @@ def _stream():
                                        num_edges=600, dim_edge=6, seed=5)
 
 
-def _jax_side(full, ef):
+def _jax_side(full, ef, cfg=CFG):
     g = JGraph(initial_pool_size=1024, minimum_block_size=4)
     g.add_edges(full.src, full.dst, full.time, full.eid, add_reverse=True)
-    model = JDGNN(**CFG, gru_impl="pallas", attention_impl="pallas")
+    model = JDGNN(**cfg, gru_impl="pallas", attention_impl="pallas")
     trainer = JTrainer(model, fanouts=[4], sample_strategy="recent",
                        dedup_factor=None, gru_table=False)
     dg = g.device_graph()
