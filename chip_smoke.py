@@ -13,23 +13,35 @@ Phases (each prints one line; any failure raises and exits non-zero):
    the TGN main paths give it, in f32 and bf16, with the tolerance stated;
    times the kernel, the plain version and, where one exists, a single
    PyTorch library call computing the same function.  The GRU backward
-   (K2) must also give bit-identical gradients in two launches.
+   (K2) and the sorted segment sum (K4, segment ids from a real dedup of
+   a stream batch) must also give identical bits in two launches.
 4. slice: TGN streaming link-prediction inference (eval steps of batch
    4000) on a REDDIT-shaped synthetic stream at full width (memory, time
    and embedding dims 100, 2 heads, 172-dim edge features, fanout 10, bf16
    compute, seeded random weights); K1 and K3 launch once per batch.
 5. train: TGN training (train steps of batch 4000, dropout 0.2, attention
    dropout 0.2, Adam at lr 1e-4) on the stream's train split at the same
-   width; K1 and K2 launch once per step and K3 never (training with
-   attention dropout routes around it).  Then a few steps at attention
-   dropout 0, where K3 and its backward run once per step.
-6. slice vs itself: the same batches of a small stream on the CPU (plain
+   width, with the default trainer, which calibrates the memory dedup on
+   its first step; K1 and K2 launch once per step and K3 never (training
+   with attention dropout routes around it).  Then a few steps at
+   attention dropout 0, where K3 and its backward run once per step.
+6. dedup: the same training with the exact (nid, ts) memory dedup at
+   factor 0.35 (benchmarks/benchmark_dedup_step.py:68-75): K4 launches
+   once per step whose unique pairs fit the cap, K1 and K2 once per step;
+   then steps at factor 0.001, which fall back to the per-instance path
+   (K4 never), and dedup eval batches (K1 once per batch, K4 never).
+7. entry: two epochs of the port's offline training script
+   (``gnnflow_tpu_torch.scripts.offline_edge_prediction``) on its
+   synthetic stream, with validation and test AP.
+8. slice vs itself: the same batches of a small stream on the CPU (plain
    versions) and on the card (kernels), same weights: eval logits and
    memory, then train steps at dropout 0 (losses, gradients, parameters
    and memory after each step), in f32 and bf16.  In bf16 the card takes
    the CPU's state before each step, so every step is held from one
    state; a free-running card run and a CPU run started from the card's
-   first step are reported beside it.
+   first step are reported beside it.  In f32 the dedup's train steps run
+   on both sides too, and the card's dedup run is held against its
+   per-instance run.
 
 Then one JSON line with every kernel's numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.
@@ -38,6 +50,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -102,13 +115,14 @@ def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def phase_kernels(torch):
+def phase_kernels(torch, stream):
     """Kernel vs plain version at main-path shapes; returns JSON rows."""
     from gnnflow_tpu_torch.ops.attention_fused import (
         neighborhood_attention, neighborhood_attention_ref)
     from gnnflow_tpu_torch.ops.gru_fused import (
         gru_memory_fused, gru_memory_fused_bwd, gru_memory_fused_bwd_ref,
         gru_memory_fused_ref)
+    from gnnflow_tpu_torch.train import dedup_cap
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
@@ -245,6 +259,53 @@ def phase_kernels(torch):
                      "encoding",
         float32=k2["float32"]))
 
+    # ---- K1 and K2 on the dedup path: N = cap (factor 0.35), f32 memory
+    # and mails (the compact pull is f32) under bf16 compute, held to the
+    # bf16 tolerances above -----------------------------------------------
+    cap = dedup_cap(0.35, n)
+    args = (mem32[:cap], mail32[:cap], dts[:cap], ki.bfloat16(), bi,
+            kh.bfloat16(), bh, tw, tb)
+    at_cap = {}
+    for row, fn, ref, extra, flops in (
+            (rows[0], gru_memory_fused, gru_memory_fused_ref, (),
+             2.0 * cap * ((dr + dt) * 3 * f + f * 3 * f)),
+            (rows[1], gru_memory_fused_bwd, gru_memory_fused_bwd_ref,
+             (dh[:cap],),
+             2.0 * cap * (2 * (dr + dt + f) * 3 * f + 3 * f * dt))):
+        a = args + extra + ("bfloat16",)
+        bwd = fn is gru_memory_fused_bwd
+        outs, again = fn(*a), fn(*a)
+        torch.cuda.synchronize()
+        want = ref(*a)
+        if bwd:
+            rel = {nm: _rel(g, w_) for nm, g, w_ in zip(names, outs, want)}
+            err = max((g - w_).abs().max().item()
+                      for g, w_ in zip(outs, want))
+            identical = all(torch.equal(g, a_) for g, a_ in zip(outs, again))
+            finite = all(bool(torch.isfinite(g).all()) for g in outs)
+            tol = k2_tol["bfloat16"]
+            ok = max(rel.values()) <= tol and identical and finite
+            checks = dict(rel_err=rel, bit_identical_reruns=identical)
+        else:
+            err = (outs - want).abs().max().item()
+            tol = k1["bfloat16"]["tol"]
+            ok = err <= tol and bool(torch.isfinite(outs).all())
+            checks = {}
+        if not ok:
+            raise AssertionError(f"{row['name']} at the dedup cap: max abs "
+                                 f"error {err}, {checks} (tol {tol})")
+        nbytes = _nbytes(*args, *extra, *(outs if bwd else (outs,)))
+        bound, by = _bound(nbytes, flops, "bfloat16")
+        row["dedup_cap"] = dict(
+            n=cap, operands="f32 memory and mails, bf16 compute",
+            max_abs_err=err, **checks, tol=tol,
+            ms=cuda_ms(torch, lambda: fn(*a)),
+            plain_ms=cuda_ms(torch, lambda: ref(*a)), bound_ms=bound,
+            bound_by=by)
+        at_cap[row["name"]] = row["dedup_cap"]
+        del outs, again, want
+    _log("kernels", kernel="gru at the dedup cap", **at_cap)
+
     # ---- K3: B = 12,000 roots, F = 10, H = 2, dh = 50 ------------------
     B, F, H, dh = 12_000, 10, 2, 50
     D = H * dh
@@ -294,7 +355,77 @@ def phase_kernels(torch):
         library_note="none: scaled_dot_product_attention has no LeakyReLU "
                      "score and not these masking semantics",
         float32=k3["float32"]))
+    rows.append(_kernel_k4(torch, stream, w))
     return rows
+
+
+def _kernel_k4(torch, stream, w):
+    """K4 at the dedup path's shapes: segment ids from a real dedup of the
+    first train batch (12,000 roots x 11 = 132,000 instances), cap of
+    factor 0.35, D = 100 (the memory width; no lane pad on the card)."""
+    from gnnflow_tpu_torch.ops.dedup import dedup_instances
+    from gnnflow_tpu_torch.ops.sampling import sample_hops
+    from gnnflow_tpu_torch.ops.segment_sum import (sorted_segment_sum,
+                                                   sorted_segment_sum_ref)
+    from gnnflow_tpu_torch.train import dedup_cap
+    train = stream["train"]
+    b = _take(train, 4000, train.dst, 1)[0]
+    m = sample_hops(stream["dg"], torch.from_numpy(b.target_nodes).cuda(),
+                    torch.from_numpy(b.ts).cuda(), fanout=10)[0][0]
+    L, D = m.num_all, 100
+    cap = dedup_cap(0.35, L)
+    _, _, _, n_uniq, _, seg = dedup_instances(m.all_nodes(), m.all_ts(),
+                                              m.all_mask(), cap)
+    n_uniq = int(n_uniq)
+    dhs = torch.randn(L, D, **w)
+    got = sorted_segment_sum(dhs, seg, cap)
+    again = sorted_segment_sum(dhs, seg, cap)
+    torch.cuda.synchronize()
+    # the plain version in f64: its atomics' order no longer shows, so the
+    # error is the kernel's own f32 rounding
+    want = sorted_segment_sum_ref(dhs.double(), seg, cap)
+    diff = (got.double() - want).abs()
+    rel, err = _rel(got.double(), want), diff.max().item()
+    # each value's error over the sum of its terms' magnitudes, the scale
+    # of f32 summation error in any order: holds short segments as
+    # tightly as the 90,528-row one
+    abs_sum = sorted_segment_sum_ref(dhs.abs().double(), seg, cap)
+    rel_terms = (diff / abs_sum.clamp_min(1e-300)).max().item()
+    identical = bool(torch.equal(got, again))
+    tol = 1e-5
+    if not (rel <= tol and rel_terms <= tol and identical
+            and bool(torch.isfinite(got).all())
+            and n_uniq <= cap and not got[n_uniq:].any()):
+        raise AssertionError(f"K4: relative error {rel}, error over the "
+                             f"terms' magnitudes {rel_terms} (tol {tol}), "
+                             f"bit-identical reruns {identical}, n_uniq "
+                             f"{n_uniq} of cap {cap}")
+    del want, diff, abs_sum
+    lengths = torch.bincount(seg.long(), minlength=cap)
+    ms = cuda_ms(torch, lambda: sorted_segment_sum(dhs, seg, cap))
+    plain_ms = cuda_ms(torch, lambda: sorted_segment_sum_ref(dhs, seg, cap))
+    library_ms = cuda_ms(torch, lambda: torch.segment_reduce(
+        dhs, "sum", lengths=lengths, axis=0, unsafe=True))
+    nbytes = _nbytes(dhs, seg, got)
+    bound, by = _bound(nbytes, float(L * D), "float32")
+    # device time of each of K4's three passes
+    prof = _profile(torch, lambda _: sorted_segment_sum(dhs, seg, cap),
+                    range(5), top=3)
+    k4 = dict(max_abs_err=err, rel_err=rel, rel_err_over_terms=rel_terms,
+              tol=tol,
+              bit_identical_reruns=identical, ms=ms, plain_ms=plain_ms,
+              library_ms=library_ms, bound_ms=bound, bound_by=by,
+              n_uniq=n_uniq, longest_segment=int(lengths.max().item()),
+              passes_ms=prof if isinstance(prof, str) else prof["top"])
+    _log("kernels", kernel="sorted_segment_sum", dtype="float32",
+         shape=[L, D, cap], **k4)
+    return dict(
+        name="sorted_segment_sum", route="cuda",
+        source="gnnflow_tpu_torch/csrc/segment_sum.cu",
+        replaces="gnnflow_tpu/ops/segment_pallas.py:165",
+        shapes={"dhs": [L, D], "seg": [L], "cap": cap}, dtype="float32",
+        **{k: v for k, v in k4.items() if k != "tol"},
+        library_note="torch.segment_reduce(sum) with the segment lengths")
 
 
 TGN = dict(dim_node=0, dim_time=100, dim_embed=100, num_layers=1,
@@ -402,7 +533,8 @@ def phase_slice(torch, kernels, stream):
                              "shapes")
     _check_launches(launches, {"gru_memory_fused": runs,
                                "gru_memory_fused_bwd": 0,
-                               "neighborhood_attention": runs},
+                               "neighborhood_attention": runs,
+                               "sorted_segment_sum": 0},
                     f"{runs} eval batches")
     prof = _profile(torch, lambda b: trainer.eval_step(state, dg, ef, b),
                     batches[warm:warm + 5])
@@ -429,9 +561,16 @@ def _all_finite(torch, state, model) -> bool:
                 and all(torch.isfinite(p).all() for p in model.parameters()))
 
 
+def _fast_steps(trainer, state, num_all) -> int:
+    """1 when the step just taken ran the dedup's fast path, else 0."""
+    n = state.dedup_n_uniq
+    return int(n is not None and n <= trainer._dedup_cap(num_all))
+
+
 def phase_train(torch, kernels, stream):
     """Train steps of batch 4000 at the full config of bench.py:262-267 on
-    the stream's train split; then steps at attention dropout 0."""
+    the stream's train split, with the default trainer (it calibrates the
+    memory dedup on its first step); then steps at attention dropout 0."""
     from gnnflow_tpu_torch.models.dgnn import DGNN
     from gnnflow_tpu_torch.ops.attention_fused import \
         neighborhood_attention_autograd as attention_autograd
@@ -450,6 +589,7 @@ def phase_train(torch, kernels, stream):
     torch.cuda.reset_peak_memory_stats()
     _reset(kernels)
     losses = []
+    fast = 0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t_host = time.perf_counter()
@@ -457,6 +597,7 @@ def phase_train(torch, kernels, stream):
     for b in batches[warm:warm + runs]:
         _, loss, _, _ = trainer.train_step(state, dg, ef, b)
         losses.append(loss)
+        fast += _fast_steps(trainer, state, 3 * B * 11)
     end.record()
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t_host
@@ -470,7 +611,8 @@ def phase_train(torch, kernels, stream):
                              "parameter or memory value")
     _check_launches(launches, {"gru_memory_fused": runs,
                                "gru_memory_fused_bwd": runs,
-                               "neighborhood_attention": 0},
+                               "neighborhood_attention": 0,
+                               "sorted_segment_sum": fast},
                     f"{runs} train steps at att_dropout=0.2")
     prof = _profile(torch, lambda b: trainer.train_step(state, dg, ef, b),
                     batches[warm + runs:warm + runs + 5])
@@ -478,7 +620,8 @@ def phase_train(torch, kernels, stream):
     # attention dropout 0: the layer takes K3, and its backward runs
     model0 = DGNN(dim_edge=172, compute_dtype="bfloat16", seed=0,
                   device="cuda", **{**TGN, "att_dropout": 0.0})
-    trainer0 = Trainer(model0, fanouts=[10], lr=1e-4, device="cuda")
+    trainer0 = Trainer(model0, fanouts=[10], lr=1e-4, dedup_factor=None,
+                       device="cuda")
     state0 = trainer0.init_state(g.max_vertex_id() + 1, seed=0)
     _reset(kernels)
     bwd0 = attention_autograd.backward_calls
@@ -494,7 +637,8 @@ def phase_train(torch, kernels, stream):
                              "non-finite value")
     _check_launches(launches0, {"gru_memory_fused": extra,
                                 "gru_memory_fused_bwd": extra,
-                                "neighborhood_attention": extra},
+                                "neighborhood_attention": extra,
+                                "sorted_segment_sum": 0},
                     f"{extra} train steps at att_dropout=0")
     if att_bwd != extra:
         raise AssertionError(f"K3's backward ran {att_bwd} times in "
@@ -504,12 +648,168 @@ def phase_train(torch, kernels, stream):
                   edges_per_s=B / (ms / 1e3),
                   loss_first5=float(losses[:5].mean()),
                   loss_last5=float(losses[-5:].mean()),
+                  calibration=trainer.calibration, dedup_fast_steps=fast,
                   max_memory_allocated_mib=peak_mib, launches=launches,
                   att_dropout0=dict(steps=extra, launches=launches0,
                                     attention_backward_calls=att_bwd,
                                     losses=losses0.tolist()),
                   profile=prof)
     _log("train", **result)
+    return result
+
+
+def _mean_or_none(xs):
+    return statistics.mean(xs) if xs else None
+
+
+def phase_dedup(torch, kernels, stream):
+    """Train steps with the memory dedup at factor 0.35 (the config of
+    benchmarks/benchmark_dedup_step.py:68-75, which is phase 5's), on the
+    batches phase 5 times; steps at factor 0.001 (every step falls back);
+    dedup eval batches."""
+    from gnnflow_tpu_torch.models.dgnn import DGNN
+    from gnnflow_tpu_torch.train import Trainer
+    g, dg, ef, train, full = stream["g"], stream["dg"], stream["ef"], \
+        stream["train"], stream["full"]
+    B, warm, runs, fb_steps, ev_runs = 4000, 3, 30, 5, 10
+    num_all = 3 * B * 11
+    batches = _take(train, B, train.dst, warm + runs)
+
+    def trainer_for(factor):
+        model = DGNN(dim_edge=172, compute_dtype="bfloat16", seed=0,
+                     device="cuda", **TGN)
+        tr = Trainer(model, fanouts=[10], lr=1e-4, dedup_factor=factor,
+                     device="cuda")
+        return model, tr, tr.init_state(g.max_vertex_id() + 1, seed=0)
+
+    model, trainer, state = trainer_for(0.35)
+    cap = trainer._dedup_cap(num_all)
+    for b in batches[:warm]:
+        trainer.train_step(state, dg, ef, b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(kernels)
+    losses, n_uniq = [], []
+    # an event between steps, read after the loop: each step's share
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(runs + 1)]
+    t_host = time.perf_counter()
+    events[0].record()
+    for i, b in enumerate(batches[warm:warm + runs]):
+        _, loss, _, _ = trainer.train_step(state, dg, ef, b)
+        losses.append(loss)
+        n_uniq.append(state.dedup_n_uniq)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t_host
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    ms = events[0].elapsed_time(events[-1]) / runs
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    losses = torch.stack(losses).cpu()
+    fast = sum(n <= cap for n in n_uniq)
+    if not (bool(torch.isfinite(losses).all())
+            and _all_finite(torch, state, model)):
+        raise AssertionError("dedup training produced a non-finite value")
+    if fast < 1:
+        raise AssertionError(f"no dedup step fit the cap {cap}: {n_uniq}")
+    _check_launches(launches, {"gru_memory_fused": runs,
+                               "gru_memory_fused_bwd": runs,
+                               "neighborhood_attention": 0,
+                               "sorted_segment_sum": fast},
+                    f"{runs} dedup train steps ({fast} fast)")
+    # the profile takes early batches again: their unique pairs fit the cap
+    prof = _profile(torch, lambda b: trainer.train_step(state, dg, ef, b),
+                    batches[warm:warm + 5])
+
+    # factor 0.001: a cap of 256 rows, every step falls back
+    model_fb, trainer_fb, state_fb = trainer_for(0.001)
+    cap_fb = trainer_fb._dedup_cap(num_all)
+    _reset(kernels)
+    fb_uniq = []
+    for b in batches[:fb_steps]:
+        trainer_fb.train_step(state_fb, dg, ef, b)
+        fb_uniq.append(state_fb.dedup_n_uniq)
+    torch.cuda.synchronize()
+    launches_fb = {name: fn.launches for name, fn in kernels.items()}
+    if not (all(n > cap_fb for n in fb_uniq)
+            and _all_finite(torch, state_fb, model_fb)):
+        raise AssertionError(f"fallback steps: unique counts {fb_uniq} "
+                             f"against cap {cap_fb}, or non-finite values")
+    _check_launches(launches_fb, {"gru_memory_fused": fb_steps,
+                                  "gru_memory_fused_bwd": fb_steps,
+                                  "neighborhood_attention": 0,
+                                  "sorted_segment_sum": 0},
+                    f"{fb_steps} train steps at factor 0.001")
+
+    # eval with the dedup: forward only, so K4 never runs
+    model_ev, trainer_ev, state_ev = trainer_for(0.35)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    ev_batches = _take(full, B, full.dst, ev_runs + warm)
+    for b in ev_batches[:warm]:
+        trainer_ev.eval_step(state_ev, dg, ef, b)
+    torch.cuda.synchronize()
+    _reset(kernels)
+    ev_uniq, ev_losses = [], []
+    start.record()
+    for b in ev_batches[warm:]:
+        ev_losses.append(trainer_ev.eval_step(state_ev, dg, ef, b)[1])
+        ev_uniq.append(state_ev.dedup_n_uniq)
+    end.record()
+    torch.cuda.synchronize()
+    ev_ms = start.elapsed_time(end) / ev_runs
+    launches_ev = {name: fn.launches for name, fn in kernels.items()}
+    if not (bool(torch.isfinite(torch.stack(ev_losses)).all())
+            and all(n <= cap for n in ev_uniq)):
+        raise AssertionError(f"dedup eval: non-finite loss or unique "
+                             f"counts {ev_uniq} above cap {cap}")
+    _check_launches(launches_ev, {"gru_memory_fused": ev_runs,
+                                  "gru_memory_fused_bwd": 0,
+                                  "neighborhood_attention": ev_runs,
+                                  "sorted_segment_sum": 0},
+                    f"{ev_runs} dedup eval batches")
+    result = dict(
+        factor=0.35, cap=cap, steps=runs, batch_size=B, ms_per_step=ms,
+        host_ms_per_step=host_s * 1e3 / runs, edges_per_s=B / (ms / 1e3),
+        fast_steps=fast, fallback_steps=runs - fast,
+        fast_ms_per_step=_mean_or_none(
+            [t for t, n in zip(step_ms, n_uniq) if n <= cap]),
+        fallback_ms_per_step=_mean_or_none(
+            [t for t, n in zip(step_ms, n_uniq) if n > cap]),
+        n_uniq_min=min(n_uniq), n_uniq_median=statistics.median(n_uniq),
+        n_uniq_max=max(n_uniq), loss_first5=float(losses[:5].mean()),
+        loss_last5=float(losses[-5:].mean()),
+        max_memory_allocated_mib=peak_mib, launches=launches, profile=prof,
+        fallback=dict(factor=0.001, cap=cap_fb, steps=fb_steps,
+                      n_uniq=fb_uniq, launches=launches_fb),
+        eval=dict(batches=ev_runs, ms_per_batch=ev_ms, n_uniq_min=min(ev_uniq),
+                  n_uniq_max=max(ev_uniq), launches=launches_ev))
+    _log("dedup", **result)
+    return result
+
+
+def phase_entry(torch, kernels):
+    """Two epochs of the port's offline training script on its synthetic
+    stream (100,000 edges, batch 4000, TGN in f32), on the card."""
+    from gnnflow_tpu_torch.ops import _build
+    from gnnflow_tpu_torch.scripts import offline_edge_prediction as entry
+    _reset(kernels)
+    t0 = time.perf_counter()
+    out = entry.main(["--model", "TGN", "--data", "SYNTHETIC", "--epoch",
+                      "2"], checkpoint_path=os.path.join(
+                          _build.BUILD_DIR, "TGN_torch.ckpt"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    aps = out["val_ap"] + [out["test_ap"]]
+    if len(out["val_ap"]) != 2 or not all(0.0 < a <= 1.0 for a in aps):
+        raise AssertionError(f"entry: {out}")
+    if launches["gru_memory_fused"] == 0 \
+            or launches["gru_memory_fused_bwd"] == 0:
+        raise AssertionError(f"entry ran without the GRU kernels: "
+                             f"{launches}")
+    result = dict(seconds=seconds, launches=launches, **out)
+    _log("entry", **result)
     return result
 
 
@@ -593,10 +893,13 @@ def _trace_errs(a, b, pnames):
 
 def phase_self_check(torch, card: str = "cuda"):
     """CPU (plain versions) vs card (kernels) on the same batches: eval
-    steps, then train steps at dropout 0 from the same weights."""
+    steps, then train steps at dropout 0 from the same weights; in f32
+    also train steps with the memory dedup on both sides, and the card's
+    dedup run against its per-instance run."""
     from gnnflow_tpu_torch.data import (DstRandEdgeSampler, get_batches,
                                         make_synthetic_dataset)
     from gnnflow_tpu_torch.models.dgnn import DGNN
+    from gnnflow_tpu_torch.ops.segment_sum import sorted_segment_sum
     from gnnflow_tpu_torch.train import Trainer
     _, _, _, full, _, ef_np = make_synthetic_dataset(
         num_src=400, num_dst=80, num_edges=6000, dim_edge=172, seed=7,
@@ -655,19 +958,23 @@ def phase_self_check(torch, card: str = "cuda"):
         # runs in lockstep.  bf16 adds two reported runs: "card_free" runs
         # free beside the held card run, and "cpu_nudged" runs on the CPU
         # from card_free's state after the first step, so it parts from
-        # "cpu" through the first step's parameter difference alone
+        # "cpu" through the first step's parameter difference alone.  f32
+        # adds the dedup on both sides, at factor 1.0 (cap = every
+        # instance), so every step takes its fast path
         bf16 = cd == "bfloat16"
         names = ["cpu", "card"] + (["card_free", "cpu_nudged"] if bf16
-                                   else [])
+                                   else ["cpu_dedup", "card_dedup"])
         runs = {}
         for nm in names:
             device = "cpu" if nm.startswith("cpu") else card
             model = DGNN(dim_edge=172, compute_dtype=cd, seed=1,
                          device=device, **cfg)
-            tr = Trainer(model, fanouts=[10], lr=lr, device=device)
+            tr = Trainer(model, fanouts=[10], lr=lr, device=device,
+                         dedup_factor=1.0 if nm.endswith("dedup") else None)
             runs[nm] = dict(model=model, tr=tr, st=tr.init_state(num_nodes),
-                            device=device, trace=[])
+                            device=device, trace=[], fast=0)
         neg = DstRandEdgeSampler(full.dst, seed=4)
+        k4_before = sorted_segment_sum.launches
         for i, b in enumerate(get_batches(full, 500, neg)):
             if i == steps:
                 break
@@ -675,6 +982,7 @@ def phase_self_check(torch, card: str = "cuda"):
                 model, st = r["model"], r["st"]
                 _, loss, _, _ = r["tr"].train_step(
                     st, graphs[r["device"]], efs[r["device"]], b)
+                r["fast"] += _fast_steps(r["tr"], st, 1500 * 11)
                 r["trace"].append(dict(
                     loss=loss.float().cpu(),
                     grad=[q.grad.float().cpu() for q in model.parameters()],
@@ -726,6 +1034,34 @@ def phase_self_check(torch, card: str = "cuda"):
         if not (all(max(errs[k]) <= tt[k] for k in tt) and train_ts_equal
                 and finite):
             failed.append(f"train {cd}")
+        if not bf16:
+            # the dedup: CPU vs card, and the card's dedup run against its
+            # per-instance run (only the sum order over fewer GRU rows and
+            # of the expansion's transpose differ)
+            k4 = sorted_segment_sum.launches - k4_before
+            vs_cpu, vs_cpu_worst = _trace_errs(runs["cpu_dedup"]["trace"],
+                                               runs["card_dedup"]["trace"],
+                                               pnames)
+            vs_plain, vs_plain_worst = _trace_errs(
+                runs["card"]["trace"], runs["card_dedup"]["trace"], pnames)
+            dedup_ts_equal = bool(torch.equal(
+                runs["cpu_dedup"]["st"].memory.node_memory_ts,
+                runs["card_dedup"]["st"].memory.node_memory_ts.cpu()))
+            tr_out["dedup"] = dict(
+                factor=1.0, fast_steps={nm: runs[nm]["fast"] for nm in
+                                        ("cpu_dedup", "card_dedup")},
+                k4_launches=k4, memory_ts_equal=dedup_ts_equal,
+                cpu_vs_card=dict(per_step_max_err=vs_cpu,
+                                 worst_grad_parameter=vs_cpu_worst),
+                dedup_vs_per_instance_on_card=dict(
+                    per_step_max_err=vs_plain,
+                    worst_grad_parameter=vs_plain_worst))
+            if not (all(max(e[k]) <= tt[k] for e in (vs_cpu, vs_plain)
+                        for k in tt)
+                    and dedup_ts_equal and k4 == steps
+                    and runs["cpu_dedup"]["fast"] == steps
+                    and runs["card_dedup"]["fast"] == steps):
+                failed.append(f"train dedup {cd}")
         out[cd] = dict(eval=ev, train=tr_out)
     _log("self_check", eval_batches=4, batch_size=500, **out)
     if failed:
@@ -740,18 +1076,26 @@ def main() -> int:
     from gnnflow_tpu_torch.ops.attention_fused import neighborhood_attention
     from gnnflow_tpu_torch.ops.gru_fused import (gru_memory_fused,
                                                  gru_memory_fused_bwd)
+    from gnnflow_tpu_torch.ops.segment_sum import sorted_segment_sum
     phase_build()
-    rows = phase_kernels(torch)
+    stream = reddit_stream(torch)
+    rows = phase_kernels(torch, stream)
     kernels = {"gru_memory_fused": gru_memory_fused,
                "gru_memory_fused_bwd": gru_memory_fused_bwd,
-               "neighborhood_attention": neighborhood_attention}
-    stream = reddit_stream(torch)
+               "neighborhood_attention": neighborhood_attention,
+               "sorted_segment_sum": sorted_segment_sum}
     sl = phase_slice(torch, kernels, stream)
     tr = phase_train(torch, kernels, stream)
+    dd = phase_dedup(torch, kernels, stream)
+    en = phase_entry(torch, kernels)
     # launches on each main path, counted from 0 just before it: eval
-    # batches, train steps at att_dropout 0.2, train steps at 0
+    # batches, train steps at att_dropout 0.2 and at 0, dedup train steps,
+    # fallback steps and eval batches, the entry script's two epochs
     paths = {"eval": sl["launches"], "train": tr["launches"],
-             "train_att_dropout0": tr["att_dropout0"]["launches"]}
+             "train_att_dropout0": tr["att_dropout0"]["launches"],
+             "dedup_train": dd["launches"],
+             "dedup_fallback": dd["fallback"]["launches"],
+             "dedup_eval": dd["eval"]["launches"], "entry": en["launches"]}
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())

@@ -1,17 +1,24 @@
-"""Synthetic datasets, negative sampling and batch iteration.
+"""Datasets, negative sampling and batch iteration.
 
-Counterpart of ``gnnflow_tpu/data.py`` (``EdgeTable``,
-``make_synthetic_dataset``, ``DstRandEdgeSampler``, ``Batch``,
-``get_batches``).  The same seed gives byte-identical arrays, so both
-packages can run one stream.  The CSV loaders are not here: they need
-pandas, which the port does not import.
+Counterpart of ``gnnflow_tpu/data.py`` (``EdgeTable``, ``load_dataset``,
+``load_feat``, ``make_synthetic_dataset``, ``DstRandEdgeSampler``,
+``Batch``, ``get_batches``).  The same seed gives byte-identical arrays,
+so both packages can run one stream.  ``load_dataset`` reads the
+reference's ``edges.csv`` with NumPy instead of pandas, which the port
+does not import; the chunked and partitioned loaders come with the
+multi-GPU slice.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
+
+
+def get_project_root_dir() -> str:
+    return os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
 
 @dataclass
@@ -29,6 +36,55 @@ class EdgeTable:
     def __getitem__(self, sl) -> "EdgeTable":
         return EdgeTable(self.src[sl], self.dst[sl], self.time[sl],
                          self.eid[sl])
+
+
+def _read_edges_csv(path: str) -> Tuple[EdgeTable, np.ndarray]:
+    """The edges and ``ext_roll`` column of a pandas-written ``edges.csv``:
+    a header row, comma separated numbers; an unnamed first column (the
+    written index) is the edge id, as pandas' ``Unnamed: 0`` renamed to
+    ``eid`` (``data.py:94-100``), else the row number is."""
+    with open(path) as f:
+        header = f.readline().rstrip("\r\n").split(",")
+    names = ["eid" if h in ("", "Unnamed: 0") else h for h in header]
+    cols = np.loadtxt(path, delimiter=",", skiprows=1, dtype=np.float64,
+                      ndmin=2)
+    if cols.shape[1] != len(names):
+        raise ValueError(f"{path}: {cols.shape[1]} columns, header names "
+                         f"{len(names)}")
+    col = {n: cols[:, i] for i, n in enumerate(names)}
+    eid = col["eid"] if "eid" in col else np.arange(len(cols))
+    return EdgeTable(src=col["src"].astype(np.int64),
+                     dst=col["dst"].astype(np.int64),
+                     time=col["time"].astype(np.float32),
+                     eid=eid.astype(np.int64)), col["ext_roll"]
+
+
+def load_dataset(dataset: str, data_dir: Optional[str] = None) \
+        -> Tuple[EdgeTable, EdgeTable, EdgeTable, EdgeTable]:
+    """Load ``<data_dir>/<dataset>/edges.csv`` and split it by
+    ``ext_roll`` (``data.py:82-100``): ``(train, val, test, full)``."""
+    if data_dir is None:
+        data_dir = os.path.join(get_project_root_dir(), "data")
+    path = os.path.join(data_dir, dataset, "edges.csv")
+    if not os.path.exists(path):
+        raise ValueError(f"{path} does not exist")
+    full, ext_roll = _read_edges_csv(path)
+    train_end = int(np.searchsorted(ext_roll, 1))
+    val_end = int(np.searchsorted(ext_roll, 2))
+    return full[:train_end], full[train_end:val_end], full[val_end:], full
+
+
+def load_feat(dataset: str, data_dir: Optional[str] = None):
+    """``(node_feats, edge_feats)`` from ``node_features.npy`` and
+    ``edge_features.npy``, None where a file is missing
+    (``data.py:118-134``)."""
+    if data_dir is None:
+        data_dir = os.path.join(get_project_root_dir(), "data")
+    out = []
+    for name in ("node_features.npy", "edge_features.npy"):
+        path = os.path.join(data_dir, dataset, name)
+        out.append(np.load(path) if os.path.exists(path) else None)
+    return tuple(out)
 
 
 def make_synthetic_dataset(

@@ -10,6 +10,8 @@ truth; :meth:`DynamicGraph.device_graph` copies it to torch tensors.
 The TPU lane tricks (the interleaved triple pool and pair table) have no
 GPU meaning and are left out.  Eviction (``offload_old_blocks``),
 ``compact`` and spilling come with a later slice.
+:func:`build_dynamic_graph` builds the store from a data config
+(``dynamic_graph.py:547-575``).
 """
 from __future__ import annotations
 
@@ -318,3 +320,29 @@ class DynamicGraph:
             e_ts=put(self._ts),
             e_eid=put(self._eid),
             search_iters=max(1, self._max_degree.bit_length()))
+
+
+def build_dynamic_graph(initial_pool_size: int, maximum_pool_size: int,
+                        mem_resource_type: str, minimum_block_size: int,
+                        insertion_policy: str, undirected: bool,
+                        node_feature: bool = False,
+                        edge_feature: bool = False) -> DynamicGraph:
+    """A :class:`DynamicGraph` from a data config's keys
+    (:func:`gnnflow_tpu_torch.config.get_default_config`), as the JAX
+    package's ``build_dynamic_graph`` without a seed dataset.
+    ``undirected`` is the caller's ``add_reverse`` when it ingests, and the
+    feature flags say which feature files a dataset has; neither shapes
+    the store.  Raises on options the port's store lacks: host placement
+    and the ``replace`` insertion policy."""
+    del undirected, node_feature, edge_feature
+    if mem_resource_type.lower() not in ("hbm", "cuda"):
+        raise NotImplementedError(
+            f"mem_resource_type={mem_resource_type!r} (a host-resident "
+            "store) is not ported yet (ROADMAP.md, modules to port, item 2)")
+    if insertion_policy.lower() != "insert":
+        raise NotImplementedError(
+            f"insertion_policy={insertion_policy!r} is not ported yet "
+            "(ROADMAP.md, modules to port, item 2)")
+    return DynamicGraph(initial_pool_size=initial_pool_size,
+                        maximum_pool_size=maximum_pool_size,
+                        minimum_block_size=minimum_block_size)

@@ -44,7 +44,7 @@ class DGNN(nn.Module):
                 (memory_updater != "gru", "modules to port, item 9"),
             "mailbox_slots > 1": (mailbox_slots != 1, "modules to port, item 9"),
             "node features (dim_node > 0)":
-                (dim_node != 0, "modules to port, item 11"),
+                (dim_node != 0, "modules to port, item 10"),
         }
         for what, (bad, item) in unsupported.items():
             if bad:

@@ -1,0 +1,253 @@
+"""Offline temporal link-prediction training of TGN on one card.
+
+    python -m gnnflow_tpu_torch.scripts.offline_edge_prediction \
+        --model TGN --data SYNTHETIC --epoch 3 [--device cpu]
+
+Counterpart of ``scripts/offline_edge_prediction.py`` (its CLI at
+``:43-93`` and its protocol at ``:123-381``, without the feature cache,
+multiple devices or ``lax.scan``): chronological batches with a random
+epoch start, memory reset at every epoch after the first, validation AP
+and AUC after every epoch, a best-AP checkpoint with a memory backup,
+early stopping, and a final test on the best checkpoint.  ``--calibrate``
+calibrates the memory dedup on the last three train batches before
+training; without it the trainer calibrates on its first batch.  One flag
+is new: ``--device`` (``cuda`` by default, ``cpu`` for the plain PyTorch
+path).  Options the port lacks raise an error naming the ROADMAP.md item
+that brings them.
+
+Datasets: the reference's ``edges.csv`` under ``--data-dir``;
+``--data SYNTHETIC`` (or a dataset missing on disk) generates a
+deterministic synthetic stream.  The checkpoint is
+``<MODEL>_torch.ckpt`` at the repository root.
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import math
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from gnnflow_tpu_torch.config import get_default_config
+from gnnflow_tpu_torch.data import (DstRandEdgeSampler, get_batches,
+                                    load_dataset, load_feat,
+                                    make_synthetic_dataset)
+from gnnflow_tpu_torch.dynamic_graph import build_dynamic_graph
+from gnnflow_tpu_torch.models import memory as memory_lib
+from gnnflow_tpu_torch.models.factory import UNPORTED_MODELS, build_model
+from gnnflow_tpu_torch.train import Trainer
+from gnnflow_tpu_torch.utils import (EarlyStopMonitor,
+                                     average_precision_score, roc_auc_score)
+from gnnflow_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                save_checkpoint)
+
+DATASETS = ["REDDIT", "GDELT", "LASTFM", "MAG", "MOOC", "WIKI", "SYNTHETIC"]
+MODELS = ["TGN", "TGAT", "DySAT", "GRAPHSAGE", "GAT", "APAN"]
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
+
+
+def make_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description="offline TGN link-prediction training")
+    parser.add_argument("--model", choices=MODELS, required=True)
+    parser.add_argument("--data", choices=DATASETS, required=True)
+    parser.add_argument("--data-dir", default=None)
+    parser.add_argument("--epoch", type=int, default=50)
+    parser.add_argument("--lr", type=float, default=0.0001)
+    parser.add_argument("--num-chunks", type=int, default=8)
+    parser.add_argument("--print-freq", type=int, default=100)
+    parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--ingestion-batch-size", type=int, default=1000)
+    parser.add_argument("--num-devices", type=int, default=1)
+    parser.add_argument("--cache", default=None)
+    parser.add_argument("--pipeline", action="store_true")
+    parser.add_argument("--edge-cache-ratio", type=float, default=0)
+    parser.add_argument("--calibrate", action="store_true",
+                        help="measure the (nid, ts) duplication on the last "
+                             "three train batches and pick the memory "
+                             "dedup factor before training")
+    parser.add_argument("--cache-transfer-dtype", default="float32",
+                        choices=["float32", "bfloat16"])
+    parser.add_argument("--node-cache-ratio", type=float, default=0)
+    parser.add_argument("--snapshot-time-window", type=float, default=0)
+    parser.add_argument("--synthetic-edges", type=int, default=100_000)
+    parser.add_argument("--synthetic-dim-edge", type=int, default=100)
+    parser.add_argument("--features-on-host", action="store_true")
+    parser.add_argument("--memory-storage", default="float32",
+                        choices=["float32", "bfloat16"])
+    parser.add_argument("--remat-attention", action="store_true")
+    parser.add_argument("--use-scan", action="store_true")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (the kernels) or cpu (their plain "
+                             "PyTorch versions)")
+    return parser
+
+
+def _refuse_unported(parser, args) -> None:
+    """Options of the JAX script that the port lacks: an error naming the
+    ROADMAP.md item, never a silent default."""
+    unported = [
+        (args.model.lower() in UNPORTED_MODELS, f"--model {args.model}",
+         UNPORTED_MODELS.get(args.model.lower())),
+        (args.cache or args.pipeline or args.edge_cache_ratio
+         or args.node_cache_ratio or args.features_on_host
+         or args.cache_transfer_dtype != "float32",
+         "--cache, --pipeline, the cache ratios, --cache-transfer-dtype and "
+         "--features-on-host", "item 11"),
+        (args.num_devices != 1, "--num-devices > 1", "item 12"),
+        (args.memory_storage != "float32", "--memory-storage bfloat16",
+         "item 14"),
+        (args.remat_attention, "--remat-attention", "item 14"),
+        (args.use_scan, "--use-scan", "item 14"),
+        (args.snapshot_time_window, "--snapshot-time-window", "item 8"),
+    ]
+    for bad, what, item in unported:
+        if bad:
+            parser.error(f"{what}: not ported yet (ROADMAP.md, modules to "
+                         f"port, {item})")
+
+
+def _load_data(args):
+    if args.data != "SYNTHETIC":
+        try:
+            train, val, test, full = load_dataset(args.data, args.data_dir)
+            nf, ef = load_feat(args.data, args.data_dir)
+            return train, val, test, full, nf, ef, args.data.lower()
+        except ValueError:
+            logging.warning("dataset %s not found on disk; generating a "
+                            "synthetic stream instead", args.data)
+    train, val, test, full, nf, ef = make_synthetic_dataset(
+        num_src=2000, num_dst=500, num_edges=args.synthetic_edges,
+        dim_edge=args.synthetic_dim_edge, seed=args.seed)
+    return train, val, test, full, nf, ef, "synthetic"
+
+
+def main(argv=None, checkpoint_path: Optional[str] = None) -> dict:
+    """Run the protocol; returns ``{"val_ap", "val_auc"}`` (one per epoch
+    run), ``best_epoch``, ``test_ap`` and ``test_auc``.  The checkpoint
+    goes to ``checkpoint_path`` (default ``<MODEL>_torch.ckpt`` at the
+    repository root)."""
+    parser = make_parser()
+    args = parser.parse_args(argv)
+    _refuse_unported(parser, args)
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(message)s")
+    checkpoint_path = checkpoint_path or os.path.join(
+        ROOT, f"{args.model}_torch.ckpt")
+    device = args.device
+
+    np.random.seed(args.seed)
+    model_config, data_config = get_default_config(args.model, "synthetic")
+    if args.data.lower() != "synthetic":
+        model_config, data_config = get_default_config(args.model,
+                                                       args.data.lower())
+    train_data, val_data, test_data, full_data, node_feats, edge_feats, \
+        dname = _load_data(args)
+    logging.info("dataset %s: %d train / %d val / %d test edges",
+                 dname, len(train_data), len(val_data), len(test_data))
+
+    dgraph = build_dynamic_graph(**data_config)
+    t0 = time.time()
+    step = args.ingestion_batch_size
+    for lo in range(0, len(full_data), step):
+        chunk = full_data[lo: lo + step]
+        dgraph.add_edges(chunk.src, chunk.dst, chunk.time, chunk.eid,
+                         add_reverse=data_config["undirected"])
+    logging.info("graph built in %.2fs: %d vertices, %d edges, %.1f MiB",
+                 time.time() - t0, dgraph.num_vertices(),
+                 dgraph.num_edges(),
+                 dgraph.get_graph_memory_usage() / (1 << 20))
+
+    num_nodes = dgraph.max_vertex_id() + 1
+    dim_node = 0 if node_feats is None else node_feats.shape[1]
+    dim_edge = 0 if edge_feats is None else edge_feats.shape[1]
+    model, trainer_kwargs = build_model(args.model, model_config, dim_node,
+                                        dim_edge, seed=args.seed,
+                                        device=device)
+    batch_size = model_config["batch_size"]
+    lr = args.lr * math.sqrt(args.num_devices)
+    trainer = Trainer(model, lr=lr, device=device, **trainer_kwargs)
+    efs = None if edge_feats is None else \
+        torch.from_numpy(np.asarray(edge_feats, np.float32)).to(device)
+    dg = dgraph.device_graph(device)
+    state = trainer.init_state(num_nodes, seed=args.seed)
+
+    if args.calibrate:
+        cal_neg = DstRandEdgeSampler(train_data.dst, seed=args.seed)
+        cal = trainer.calibrate(dg, list(get_batches(train_data, batch_size,
+                                                     cal_neg))[-3:])
+        logging.info("calibration: %s", cal)
+
+    train_neg = DstRandEdgeSampler(train_data.dst, seed=args.seed)
+    val_neg = DstRandEdgeSampler(full_data.dst, seed=args.seed + 1)
+    test_neg = DstRandEdgeSampler(full_data.dst, seed=args.seed + 2)
+    rng = np.random.RandomState(args.seed)
+
+    def run_eval(data, neg_sampler):
+        scores, labels = [], []
+        loss_sum = 0.0
+        for batch in get_batches(data, batch_size, neg_sampler):
+            _, loss, pos, neg = trainer.eval_step(state, dg, efs, batch)
+            k = batch.num_valid
+            logits = torch.cat([pos[:k], neg[:k]]).float().cpu().numpy()
+            scores.append(1 / (1 + np.exp(-logits)))
+            labels.append(np.concatenate([np.ones(k), np.zeros(k)]))
+            loss_sum += float(loss)
+        y, t = np.concatenate(scores), np.concatenate(labels)
+        return average_precision_score(t, y), roc_auc_score(t, y), loss_sum
+
+    out = {"val_ap": [], "val_auc": []}
+    best_ap, best_e = 0.0, 0
+    early_stopper = EarlyStopMonitor()
+    logging.info("starting training loop")
+    for epoch in range(args.epoch):
+        epoch_start = time.time()
+        total_samples = 0
+        it = 0
+        # the reference resets TGN memory at every epoch start after the
+        # first, so the validation pass's state never leaks into training
+        if epoch > 0:
+            memory_lib.reset_memory(state.memory)
+        for batch in get_batches(train_data, batch_size, train_neg,
+                                 num_chunks=args.num_chunks, rng=rng):
+            _, loss, _, _ = trainer.train_step(state, dg, efs, batch)
+            total_samples += 3 * batch.num_valid
+            it += 1
+            if it % args.print_freq == 0:
+                logging.info("epoch %d it %d loss %.4f", epoch, it,
+                             float(loss))
+        if str(device).startswith("cuda"):
+            torch.cuda.synchronize()
+        epoch_time = time.time() - epoch_start
+        ap, auc, _ = run_eval(val_data, val_neg)
+        out["val_ap"].append(ap)
+        out["val_auc"].append(auc)
+        logging.info("epoch %d: time %.2fs, throughput %.0f samples/s, "
+                     "val ap %.4f auc %.4f", epoch, epoch_time,
+                     total_samples / epoch_time, ap, auc)
+        if ap > best_ap:
+            best_ap, best_e = ap, epoch
+            save_checkpoint(checkpoint_path, model.state_dict(),
+                            memory_lib.backup_memory(state.memory),
+                            {"epoch": epoch, "ap": ap})
+        if early_stopper.early_stop_check(ap):
+            logging.info("early stop at epoch %d (best %d)", epoch, best_e)
+            break
+
+    logging.info("loading best checkpoint (epoch %d)...", best_e)
+    ckpt = load_checkpoint(checkpoint_path)
+    model.load_state_dict(ckpt["params"])
+    model.cast_weights()
+    state.memory = memory_lib.restore_memory(ckpt["memory"], trainer.device)
+    ap, auc, _ = run_eval(test_data, test_neg)
+    logging.info("Test ap:%.4f  test auc:%.4f", ap, auc)
+    out.update(best_epoch=best_e, test_ap=ap, test_auc=auc)
+    return out
+
+
+if __name__ == "__main__":
+    main()

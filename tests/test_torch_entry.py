@@ -1,0 +1,173 @@
+"""The port's TGN offline training entry point and what it stands on:
+early stopping, memory reset/backup/restore, checkpoints, the model
+factory, ``build_dynamic_graph`` and the pandas-free ``edges.csv``
+loader (each against the JAX package where it has a counterpart), and two
+epochs of ``python -m gnnflow_tpu_torch.scripts.offline_edge_prediction``
+on the CPU."""
+import logging
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from gnnflow_tpu import data as jdata
+from gnnflow_tpu.utils import EarlyStopMonitor as JEarlyStopMonitor
+from gnnflow_tpu_torch import config, data
+from gnnflow_tpu_torch.dynamic_graph import (DynamicGraph,
+                                             build_dynamic_graph)
+from gnnflow_tpu_torch.models import memory as memory_lib
+from gnnflow_tpu_torch.models.dgnn import DGNN
+from gnnflow_tpu_torch.models.factory import build_model
+from gnnflow_tpu_torch.scripts import offline_edge_prediction as entry
+from gnnflow_tpu_torch.utils import EarlyStopMonitor
+from gnnflow_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                save_checkpoint)
+from tests.test_torch_train import CFG
+
+
+@pytest.mark.parametrize("higher_better", [True, False])
+def test_early_stop_matches_jax(higher_better):
+    vals = [0.5, 0.6, 0.6, 0.59, 0.61, 0.61, 0.6, 0.58, 0.57, 0.56, 0.7,
+            0.7, 0.69, 0.68, 0.67, 0.66, 0.65]
+    ours = EarlyStopMonitor(max_round=4, higher_better=higher_better)
+    ref = JEarlyStopMonitor(max_round=4, higher_better=higher_better)
+    for v in vals:
+        assert ours.early_stop_check(v) == ref.early_stop_check(v)
+        assert (ours.num_round, ours.best_epoch, ours.last_best) == \
+            (ref.num_round, ref.best_epoch, ref.last_best)
+
+
+def _filled_memory(seed=0):
+    mem = memory_lib.init_memory(30, 8, 6, "cpu")
+    gen = torch.Generator().manual_seed(seed)
+    for name in ("node_memory", "node_memory_ts", "mailbox", "mailbox_ts"):
+        t = getattr(mem, name)
+        t.copy_(torch.randn(t.shape, generator=gen))
+    return mem
+
+
+def test_memory_backup_restore_reset():
+    mem = _filled_memory()
+    bk = memory_lib.backup_memory(mem)
+    restored = memory_lib.restore_memory(bk, "cpu")
+    assert memory_lib.reset_memory(mem) is mem
+    for name in ("node_memory", "node_memory_ts", "mailbox", "mailbox_ts"):
+        assert not getattr(mem, name).any(), name
+        # the backup is a copy, not a view of the reset tensors
+        assert torch.equal(getattr(restored, name), bk[name]), name
+        assert bk[name].abs().sum() > 0, name
+
+
+def test_checkpoint_round_trip(tmp_path):
+    model = DGNN(**CFG, seed=3, device="cpu")
+    mem = _filled_memory(1)
+    path = str(tmp_path / "sub" / "TGN_torch.ckpt")
+    save_checkpoint(path, model.state_dict(), memory_lib.backup_memory(mem),
+                    {"epoch": 2, "ap": 0.75})
+    ckpt = load_checkpoint(path)
+    assert ckpt["extra"] == {"epoch": 2, "ap": 0.75}
+    fresh = DGNN(**CFG, seed=4, device="cpu")
+    fresh.load_state_dict(ckpt["params"])
+    for (n, p), q in zip(model.named_parameters(), fresh.parameters()):
+        assert torch.equal(p, q), n
+    back = memory_lib.restore_memory(ckpt["memory"], "cpu")
+    for name in ("node_memory", "node_memory_ts", "mailbox", "mailbox_ts"):
+        assert torch.equal(getattr(back, name), getattr(mem, name)), name
+    assert not os.path.exists(path + ".tmp")
+
+
+def _assert_tables_equal(a, b):
+    for field in ("src", "dst", "time", "eid"):
+        x, y = getattr(a, field), getattr(b, field)
+        assert x.dtype == y.dtype and x.tobytes() == y.tobytes(), field
+
+
+def test_load_dataset_matches_jax(tmp_path):
+    """A pandas-written ``edges.csv`` (index column) and one without the
+    index column (edge ids are row numbers), with their feature files."""
+    jdata.write_synthetic_dataset(str(tmp_path / "TINY"), num_src=40,
+                                  num_dst=15, num_edges=500, dim_node=3,
+                                  dim_edge=4, seed=2, time_scale=3.3)
+    full = jdata.load_dataset("TINY", str(tmp_path))[3]
+    os.makedirs(tmp_path / "BARE")
+    ext = np.repeat([0, 1, 2], [300, 100, 100])
+    with open(tmp_path / "BARE" / "edges.csv", "w") as f:
+        f.write("src,dst,time,ext_roll\n")
+        for s, d, t, e in zip(full.src, full.dst, full.time, ext):
+            f.write(f"{s},{d},{t},{e}\n")
+    for name in ("TINY", "BARE"):
+        ours = data.load_dataset(name, str(tmp_path))
+        ref = jdata.load_dataset(name, str(tmp_path))
+        for a, b in zip(ours, ref):
+            _assert_tables_equal(a, b)
+        assert [len(t) for t in ours] == [len(t) for t in ref]
+        for a, b in zip(data.load_feat(name, str(tmp_path)),
+                        jdata.load_feat(name, str(tmp_path))):
+            assert (a is None and b is None) or np.array_equal(a, b)
+    assert [len(t) for t in data.load_dataset("BARE", str(tmp_path))] == \
+        [300, 100, 100, 500]
+    with pytest.raises(ValueError, match="does not exist"):
+        data.load_dataset("MISSING", str(tmp_path))
+
+
+def test_build_dynamic_graph_from_data_configs():
+    _, data_cfg = config.get_default_config("tgn", "reddit")
+    g = build_dynamic_graph(**data_cfg)
+    assert isinstance(g, DynamicGraph)
+    assert g.minimum_block_size == data_cfg["minimum_block_size"]
+    _, gdelt = config.get_default_config("tgn", "gdelt")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_dynamic_graph(**gdelt)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_dynamic_graph(**{**data_cfg, "insertion_policy": "replace"})
+
+
+@pytest.mark.parametrize("name", ["tgat", "dysat", "apan", "graphsage",
+                                  "gat"])
+def test_build_model_names_the_roadmap_item(name):
+    cfg, _ = config.get_default_config(name, "synthetic")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(name, cfg, 0, 6, device="cpu")
+
+
+def test_build_model_tgn():
+    cfg, _ = config.get_default_config("tgn", "synthetic")
+    model, kw = build_model("TGN", cfg, 0, 6, seed=1, device="cpu")
+    assert kw == {"fanouts": [10]} and model.dim_memory == 100
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model("tgn", {**cfg, "sample_strategy": "uniform"}, 0, 6,
+                    device="cpu")
+
+
+@pytest.mark.parametrize("flags", [
+    ["--cache", "LRUCache"], ["--num-devices", "2"],
+    ["--memory-storage", "bfloat16"], ["--remat-attention"], ["--use-scan"],
+    ["--snapshot-time-window", "10"], ["--features-on-host"],
+    ["--model", "TGAT"]])
+def test_entry_refuses_unported_flags(flags, capsys):
+    with pytest.raises(SystemExit):
+        entry.main(["--model", "TGN", "--data", "SYNTHETIC", *flags])
+    assert "ROADMAP.md" in capsys.readouterr().err
+
+
+def test_entry_trains_two_epochs_on_cpu(tmp_path, caplog):
+    path = str(tmp_path / "TGN_torch.ckpt")
+    with caplog.at_level(logging.INFO):
+        out = entry.main(["--model", "TGN", "--data", "SYNTHETIC",
+                          "--epoch", "2", "--synthetic-edges", "3000",
+                          "--synthetic-dim-edge", "16", "--device", "cpu"],
+                         checkpoint_path=path)
+    assert len(out["val_ap"]) == 2 and len(out["val_auc"]) == 2
+    for v in out["val_ap"] + out["val_auc"] + [out["test_ap"],
+                                               out["test_auc"]]:
+        assert 0.0 < v <= 1.0
+    msgs = [r.getMessage() for r in caplog.records]
+    assert sum("val ap" in m for m in msgs) == 2
+    assert any(m.startswith("Test ap:") for m in msgs)
+    assert any("auto-calibration" in m for m in msgs)
+    ckpt = load_checkpoint(path)
+    assert ckpt["extra"]["epoch"] == out["best_epoch"]
+    assert ckpt["extra"]["ap"] == max(out["val_ap"])
+    assert set(ckpt["memory"]) == {"node_memory", "node_memory_ts",
+                                   "mailbox", "mailbox_ts"}

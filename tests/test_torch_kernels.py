@@ -23,6 +23,9 @@ Tolerances:
   FMA above, rounds to the neighbouring bf16 value (2^-8 relative), and
   each gradient sums such products over all rows.
 - attention backward f32: 1e-5 (the same plain ops on both sides).
+- segment sum (K4), on the card: max abs error over max abs value 1e-5;
+  the kernel adds in row order, the plain version's CUDA ``index_add_``
+  in the order its atomics land.
 """
 from types import SimpleNamespace
 
@@ -37,6 +40,9 @@ from gnnflow_tpu_torch.ops.attention_fused import (
 from gnnflow_tpu_torch.ops.gru_fused import (
     gru_memory_fused, gru_memory_fused_autograd, gru_memory_fused_bwd,
     gru_memory_fused_bwd_ref, gru_memory_fused_ref)
+from gnnflow_tpu_torch.ops.segment_sum import (expand_compact,
+                                               sorted_segment_sum,
+                                               sorted_segment_sum_ref)
 
 GRAD_NAMES = ("dki", "dbi", "dkh", "dbh", "dtw", "dtb")
 
@@ -309,3 +315,62 @@ def test_gru_bwd_kernel_matches_plain_on_card(cuda, case):
         assert torch.equal(g, a), name
         err = ((g - w).abs().max() / w.abs().max()).item()
         assert err <= tol, (name, err)
+
+
+def _segments(L, cap, D, seed, tail=0):
+    """Non-decreasing ranks with empty ranks in the middle and at the end,
+    a hot pair of 200 rows, and the last ``tail`` rows on one rank (as the
+    dedup's invalid instances); and rows to sum."""
+    rng = np.random.RandomState(seed)
+    seg = np.sort(rng.randint(0, cap - 7, L)).astype(np.int32)
+    seg[L // 3: L // 3 + 200] = seg[L // 3]
+    seg = np.sort(seg)
+    if tail:
+        seg[L - tail:] = seg[L - tail - 1]
+    return seg, rng.randn(L, D).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,cap,D,tail", [
+    (5000, 2000, 100, 0), (3000, 700, 128, 0), (1000, 300, 37, 0),
+    (2000, 500, 300, 0), (60_000, 9000, 100, 40_000), (63, 40, 100, 0)])
+def test_segment_sum_kernel_matches_plain_on_card(cuda, L, cap, D, tail):
+    seg, dhs = _segments(L, cap, D, seed=L, tail=tail)
+    seg, dhs = torch.from_numpy(seg).to(cuda), torch.from_numpy(dhs).to(cuda)
+    before = sorted_segment_sum.launches
+    got = sorted_segment_sum(dhs, seg, cap)
+    again = sorted_segment_sum(dhs, seg, cap)
+    torch.cuda.synchronize()
+    assert sorted_segment_sum.launches == before + 2
+    assert torch.equal(got, again)           # no atomics
+    # the plain version in f64, so that its atomics' order does not show;
+    # each value is also held to the sum of its terms' magnitudes, the
+    # scale of f32 summation error, so short segments are held tightly
+    want = sorted_segment_sum_ref(dhs.double(), seg, cap)
+    err = (got.double() - want).abs()
+    assert (err.max() / want.abs().max()).item() <= 1e-5
+    abs_sum = sorted_segment_sum_ref(dhs.abs().double(), seg, cap)
+    assert (err / abs_sum.clamp_min(1e-300)).max().item() <= 1e-5
+    assert not got[cap - 7:].any()
+
+
+@pytest.mark.cuda
+def test_expand_compact_backward_launches_k4_on_card(cuda):
+    seg, dh = _segments(4000, 1500, 100, seed=1)
+    sidx = torch.from_numpy(np.random.RandomState(2).permutation(4000)) \
+        .to(cuda)
+    rank = torch.from_numpy(seg).to(cuda)
+    inv = torch.empty_like(sidx)
+    inv[sidx] = rank.long()
+    up = torch.randn(1500, 100, device=cuda, requires_grad=True)
+    before = sorted_segment_sum.launches
+    out = expand_compact(up, inv, sidx, rank)
+    dh = torch.from_numpy(dh).to(cuda)
+    out.backward(dh)
+    torch.cuda.synchronize()
+    assert sorted_segment_sum.launches == before + 1
+    assert torch.equal(out, up.detach()[inv])
+    want = torch.zeros_like(up, dtype=torch.float64) \
+        .index_add_(0, inv, dh.double())
+    assert ((up.grad.double() - want).abs().max()
+            / want.abs().max()).item() <= 1e-5
