@@ -8,13 +8,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
 1. device: CUDA must be present; prints ``nvidia-smi``'s name and power
    limit of the card.
 2. build: compiles every CUDA kernel of the package from ``csrc/`` with
-   ``nvcc`` (one process per source, in parallel) into ``build/``.
+   ``nvcc`` (one process per source, in parallel) into ``build/``; prints
+   each kernel's registers and spills, and the count of tensor-core
+   instructions in the SASS of each GRU kernel (``cuobjdump``), which
+   must not be 0 for the bf16 forward, row-tile and product kernels.
 3. kernels: each kernel against its plain PyTorch version at the shapes
    the TGN main paths give it, in f32 and bf16, with the tolerance stated;
    times the kernel, the plain version and, where one exists, a single
-   PyTorch library call computing the same function.  The GRU backward
-   (K2) and the sorted segment sum (K4, segment ids from a real dedup of
-   a stream batch) must also give identical bits in two launches.
+   PyTorch library call computing the same function (for K1 and K2 also
+   at the dedup cap).  The GRU backward (K2) and the sorted segment sum
+   (K4, segment ids from a real dedup of a stream batch) must also give
+   identical bits in two launches.
 4. slice: TGN streaming link-prediction inference (eval steps of batch
    4000) on a REDDIT-shaped synthetic stream at full width (memory, time
    and embedding dims 100, 2 heads, 172-dim edge features, fanout 10, bf16
@@ -93,15 +97,46 @@ def phase_device(torch):
     return {"name": torch.cuda.get_device_name(0), "smi": smi}
 
 
+# the GRU kernels whose bf16 products must run on tensor cores, by a part
+# of their mangled names: K1's forward, K2's row-tile pass and products
+TENSOR_CORE_KERNELS = ("2tc10fwd_kernel", "2tc15bwd_rows_kernel",
+                       "2tc14product_kernel")
+
+
+def _tensor_core_counts(lib_path: str):
+    """Count of tensor-core instructions (HMMA, HGMMA) in the SASS of each
+    function of a built library, from ``cuobjdump --dump-sass``."""
+    import shutil
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", lib_path],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and ("HMMA" in ln or "HGMMA" in ln):
+            counts[fn] += 1
+    return counts
+
+
 def phase_build():
     from gnnflow_tpu_torch.ops import _build
     t0 = time.perf_counter()
     logs = _build.build_all()
+    seconds = time.perf_counter() - t0
     regs = {n: [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln]
             for n, log in logs.items()}
-    _log("build", seconds=round(time.perf_counter() - t0, 3),
-         kernels=_build.sources(), ptxas=regs)
+    hmma = _tensor_core_counts(_build.lib_path("gru_fused"))
+    missing = [k for k in TENSOR_CORE_KERNELS
+               if not any(k in fn and c > 0 for fn, c in hmma.items())]
+    _log("build", seconds=round(seconds, 3), kernels=_build.sources(),
+         ptxas=regs, gru_fused_tensor_core_instructions=hmma)
+    if missing:
+        raise AssertionError(f"no tensor-core instructions in {missing}")
 
 
 def _bound(nbytes: float, flops: float, dtype: str):
@@ -161,15 +196,8 @@ def phase_kernels(torch, stream):
             raise AssertionError(f"K1 {name}: max_abs_err {err} > {tol}")
         ms = cuda_ms(torch, lambda: gru_memory_fused(*args))
         plain_ms = cuda_ms(torch, lambda: gru_memory_fused_ref(*args))
-        # library yardstick: torch.gru_cell on the pre-concatenated input
-        # (excludes the time encoding, which it cannot fuse)
-        x = torch.cat([mail.to(cdt), torch.cos(dts[:, None] * tw + tb)
-                       .to(cdt)], 1)
-        hx, wi, wh = mem.to(cdt), ki.t().contiguous().to(cdt), \
-            kh.t().contiguous().to(cdt)
-        bic, bhc = bi.to(cdt), bh.to(cdt)
-        library_ms = cuda_ms(
-            torch, lambda: torch.gru_cell(x, hx, wi, wh, bic, bhc))
+        library_ms = _gru_library_ms(torch, mem, mail, dts, ki, kh, bi, bh,
+                                     tw, tb, cdt)
         nbytes = _nbytes(mem, mail, dts, got) + _nbytes(
             ki.to(cdt), kh.to(cdt), bi, bh, tw, tb)
         flops = 2.0 * n * ((dr + dt) * 3 * f + f * 3 * f)
@@ -218,20 +246,8 @@ def phase_kernels(torch, stream):
                                  f"{identical}, finite {finite}")
         ms = cuda_ms(torch, lambda: gru_memory_fused_bwd(*args))
         plain_ms = cuda_ms(torch, lambda: gru_memory_fused_bwd_ref(*args))
-        # library yardstick: the autograd backward of torch.gru_cell on the
-        # pre-concatenated input, with respect to its weights (excludes
-        # the time encoding, as K1's)
-        x = torch.cat([mail.to(cdt), torch.cos(dts[:, None] * tw + tb)
-                       .to(cdt)], 1)
-        wi = ki.t().contiguous().to(cdt).requires_grad_()
-        wh = kh.t().contiguous().to(cdt).requires_grad_()
-        bic = bi.to(cdt).requires_grad_()
-        bhc = bh.to(cdt).requires_grad_()
-        out = torch.gru_cell(x, mem.to(cdt), wi, wh, bic, bhc)
-        dhc = dh.to(out.dtype)
-        library_ms = cuda_ms(torch, lambda: torch.autograd.grad(
-            out, (wi, wh, bic, bhc), dhc, retain_graph=True))
-        del out
+        library_ms = _gru_library_ms(torch, mem, mail, dts, ki, kh, bi, bh,
+                                     tw, tb, cdt, dh)
         nbytes = _nbytes(mem, mail, dts, dh, *got) + _nbytes(
             ki.to(cdt), kh.to(cdt), bi, bh, tw, tb)
         k_in = dr + dt
@@ -239,10 +255,15 @@ def phase_kernels(torch, stream):
                            + (k_in + f) * 3 * f      # dKi and dKh
                            + 3 * f * dt)             # dtf
         bound, by = _bound(nbytes, flops, name)
+        # device time of each of K2's launches
+        prof = _profile(torch, lambda _: gru_memory_fused_bwd(*args),
+                        range(5), top=6)
         k2[name] = dict(max_abs_err=err, rel_err=rel, tol=k2_tol[name],
                         bit_identical_reruns=identical, ms=ms,
                         plain_ms=plain_ms, library_ms=library_ms,
-                        bound_ms=bound, bound_by=by)
+                        bound_ms=bound, bound_by=by,
+                        passes_ms=prof if isinstance(prof, str)
+                        else prof["top"])
         _log("kernels", kernel="gru_memory_fused_bwd", dtype=name,
              shape=[n, f, dr, dt], **k2[name])
     rows.append(dict(
@@ -300,8 +321,10 @@ def phase_kernels(torch, stream):
             n=cap, operands="f32 memory and mails, bf16 compute",
             max_abs_err=err, **checks, tol=tol,
             ms=cuda_ms(torch, lambda: fn(*a)),
-            plain_ms=cuda_ms(torch, lambda: ref(*a)), bound_ms=bound,
-            bound_by=by)
+            plain_ms=cuda_ms(torch, lambda: ref(*a)),
+            library_ms=_gru_library_ms(torch, *args[:3], ki, kh, bi, bh, tw,
+                                       tb, torch.bfloat16, *extra),
+            bound_ms=bound, bound_by=by)
         at_cap[row["name"]] = row["dedup_cap"]
         del outs, again, want
     _log("kernels", kernel="gru at the dedup cap", **at_cap)
@@ -357,6 +380,26 @@ def phase_kernels(torch, stream):
         float32=k3["float32"]))
     rows.append(_kernel_k4(torch, stream, w))
     return rows
+
+
+def _gru_library_ms(torch, mem, mail, dts, ki, kh, bi, bh, tw, tb, cdt,
+                    dh=None):
+    """The library yardstick of K1 (``dh`` None) or K2: ``torch.gru_cell``
+    in ``cdt`` on the pre-concatenated ``[mail | cos(dts*tw+tb)]`` input,
+    or the autograd backward of that call with respect to its weights and
+    biases.  Both exclude the time encoding, which they cannot fuse."""
+    x = torch.cat([mail.to(cdt), torch.cos(dts[:, None] * tw + tb).to(cdt)],
+                  1)
+    hx = mem.to(cdt)
+    ws = [ki.t().contiguous().to(cdt), kh.t().contiguous().to(cdt),
+          bi.to(cdt), bh.to(cdt)]
+    if dh is None:
+        return cuda_ms(torch, lambda: torch.gru_cell(x, hx, *ws))
+    ws = [w_.requires_grad_() for w_ in ws]
+    out = torch.gru_cell(x, hx, *ws)
+    dhc = dh.to(out.dtype)
+    return cuda_ms(torch, lambda: torch.autograd.grad(out, ws, dhc,
+                                                      retain_graph=True))
 
 
 def _kernel_k4(torch, stream, w):

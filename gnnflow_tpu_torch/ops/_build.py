@@ -37,7 +37,8 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _lib_path(name: str) -> str:
+def lib_path(name: str) -> str:
+    """Path of the built library of ``csrc/<name>.cu``."""
     with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
         digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
@@ -56,7 +57,7 @@ def build_all(names=None) -> Dict[str, str]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     for name in names:
-        out = _lib_path(name)
+        out = lib_path(name)
         if os.path.exists(out):
             continue
         tmp = out + f".{os.getpid()}.tmp"
@@ -83,7 +84,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is None:
         build_all([name])
-        lib = ctypes.CDLL(_lib_path(name))
+        lib = ctypes.CDLL(lib_path(name))
         _loaded[name] = lib
     return lib
 

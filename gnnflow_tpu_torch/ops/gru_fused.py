@@ -19,14 +19,6 @@ from gnnflow_tpu_torch.ops import _build
 
 _FLOATS = (torch.float32, torch.bfloat16)
 
-# K2's fixed launch geometry: at most 264 row-tile blocks (two per SM of
-# an H100), and the weight-gradient products split the rows in chunks of
-# at least 8192 rows, at most 16 chunks.  Both depend only on N, so the
-# partial sums, and the gradients, are the same in every run.
-_ROW_BLOCKS = 264
-_SPLIT_ROWS = 8192
-_MAX_SPLITS = 16
-
 
 def _cd(compute_dtype) -> torch.dtype:
     if compute_dtype is None:
@@ -118,15 +110,19 @@ def gru_memory_fused(mem, mail, dts, ki, bi, kh, bh, tw, tb,
     cd = _cd(compute_dtype)
     _check(mem, mail, dts, ki, bi, kh, bh, tw, tb, cd)
     n, f = mem.shape
+    dr, dt = mail.shape[1], tw.shape[0]
     h = torch.empty((n, f), dtype=torch.float32, device=mem.device)
     if n == 0:
         return h
     lib = _lib()
+    op_bf16 = int(cd == torch.bfloat16)
+    scratch = _scratch(lib.gru_fused_fwd_scratch(op_bf16, n, f, dr, dt),
+                       mem.device)
     err = lib.gru_fused_fwd(
-        int(mem.dtype == torch.bfloat16), int(cd == torch.bfloat16),
+        int(mem.dtype == torch.bfloat16), op_bf16,
         mem.data_ptr(), mail.data_ptr(), dts.data_ptr(), ki.data_ptr(),
         bi.data_ptr(), kh.data_ptr(), bh.data_ptr(), tw.data_ptr(),
-        tb.data_ptr(), h.data_ptr(), n, f, mail.shape[1], tw.shape[0],
+        tb.data_ptr(), h.data_ptr(), scratch.data_ptr(), n, f, dr, dt,
         torch.cuda.current_stream(mem.device).cuda_stream)
     _build.check(lib, err, "gru_fused_fwd")
     gru_memory_fused.launches += 1
@@ -212,24 +208,17 @@ def gru_memory_fused_bwd(mem, mail, dts, ki, bi, kh, bh, tw, tb, dh,
     dk = alloc((k_in + f) * 3 * f, **f32)
     small = alloc(6 * f + 2 * dt, **f32)
     if n > 0:
-        tiles = -(-n // 32)
-        row_blocks = -(-tiles // -(-tiles // _ROW_BLOCKS))
-        splits = max(1, min(_MAX_SPLITS, -(-n // _SPLIT_ROWS)))
-        opd = dict(dtype=cd, device=dev)
-        ktt = torch.empty((3 * f, dt), **opd)
-        d_buf = torch.empty((n, 4 * f), **opd)
-        tf_buf = torch.empty((n, dt), **opd)
-        part_rows = torch.empty((row_blocks, 6 * f + 2 * dt), **f32)
-        part_dk = torch.empty((splits, (k_in + f) * 3 * f), **f32)
         lib = _lib()
+        op_bf16 = int(cd == torch.bfloat16)
+        scratch = _scratch(lib.gru_fused_bwd_scratch(op_bf16, n, f, dr, dt),
+                           dev)
         err = lib.gru_fused_bwd(
-            int(mem.dtype == torch.bfloat16), int(cd == torch.bfloat16),
+            int(mem.dtype == torch.bfloat16), op_bf16,
             mem.data_ptr(), mail.data_ptr(), dts.data_ptr(), ki.data_ptr(),
             bi.data_ptr(), kh.data_ptr(), bh.data_ptr(), tw.data_ptr(),
-            tb.data_ptr(), dh.data_ptr(), ktt.data_ptr(), d_buf.data_ptr(),
-            tf_buf.data_ptr(), part_rows.data_ptr(), row_blocks,
-            part_dk.data_ptr(), splits, dk.data_ptr(), small.data_ptr(), n,
-            f, dr, dt, torch.cuda.current_stream(dev).cuda_stream)
+            tb.data_ptr(), dh.data_ptr(), scratch.data_ptr(), dk.data_ptr(),
+            small.data_ptr(), n, f, dr, dt,
+            torch.cuda.current_stream(dev).cuda_stream)
         _build.check(lib, err, "gru_fused_bwd")
         gru_memory_fused_bwd.launches += 1
     f3 = 3 * f
@@ -275,14 +264,22 @@ def gru_memory_fused_autograd(mem, mail, dts, ki, bi, kh, bh, tw, tb, ki_c,
                                  ki_c, kh_c, compute_dtype)
 
 
+def _scratch(nbytes: int, device) -> torch.Tensor:
+    """Device scratch of one launch; its size depends only on the shapes,
+    and so does the kernels' launch geometry."""
+    return torch.empty(max(nbytes, 1), dtype=torch.uint8, device=device)
+
+
 def _lib():
     lib = _build.load("gru_fused")
     if lib.gru_fused_fwd.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.gru_fused_fwd.argtypes = [i, i] + [p] * 10 + [i] * 4 + [p]
+        for fn in (lib.gru_fused_fwd_scratch, lib.gru_fused_bwd_scratch):
+            fn.argtypes = [i] * 5
+            fn.restype = ctypes.c_size_t
+        lib.gru_fused_fwd.argtypes = [i, i] + [p] * 11 + [i] * 4 + [p]
         lib.gru_fused_fwd.restype = i
-        lib.gru_fused_bwd.argtypes = [i, i] + [p] * 14 + [i, p, i, p, p] \
-            + [i] * 4 + [p]
+        lib.gru_fused_bwd.argtypes = [i, i] + [p] * 13 + [i] * 4 + [p]
         lib.gru_fused_bwd.restype = i
     return lib

@@ -105,12 +105,17 @@ GRU_CASES = {"f32": (None, np.float32, 2e-5),
              "bf16 pull": ("bfloat16", "bf16", 1e-3)}
 
 
+# odd widths: no dimension a multiple of 8 or 16, as the card's tiles pad
+ODD = dict(f=37, dr=13, dt=5)
+
+
 @pytest.mark.parametrize("case", list(GRU_CASES))
-@pytest.mark.parametrize("n", [512, 1000])   # whole and ragged Pallas tiles
-def test_gru_ref_matches_pallas(jref, n, case):
+@pytest.mark.parametrize("n,widths", [(512, {}), (1000, {}), (300, ODD)],
+                         ids=["512", "1000", "odd"])   # whole, ragged tiles
+def test_gru_ref_matches_pallas(jref, n, widths, case):
     jnp = jref.jnp
     cd, state_dtype, tol = GRU_CASES[case]
-    args = _gru_inputs(n)
+    args = _gru_inputs(n, **widths)
     jargs = [jnp.asarray(a) for a in args]
     targs = [torch.from_numpy(a) for a in args]
     if state_dtype == "bf16":
@@ -129,16 +134,19 @@ def _rel_err(got, want) -> float:
     return float(np.abs(got - want).max() / np.abs(want).max())
 
 
-@pytest.mark.parametrize("case", list(GRU_CASES))
-def test_gru_bwd_ref_matches_pallas(jref, case):
+@pytest.mark.parametrize(
+    "case,widths", [(c, {}) for c in GRU_CASES] + [(c, ODD) for c in GRU_CASES],
+    ids=list(GRU_CASES) + [f"{c}-odd" for c in GRU_CASES])
+def test_gru_bwd_ref_matches_pallas(jref, case, widths):
     """K2's plain version against the Pallas backward kernel, with 700
     rows: one whole 512-row tile and one ragged tile."""
     jnp = jref.jnp
     cd, state_dtype, _ = GRU_CASES[case]
     tol = 1e-5 if cd is None else 1e-3
     n = 700
-    args = _gru_inputs(n, seed=3)
-    dh = (np.random.RandomState(4).randn(n, 100)).astype(np.float32)
+    args = _gru_inputs(n, seed=3, **widths)
+    dh = (np.random.RandomState(4).randn(n, widths.get("f", 100))
+          .astype(np.float32))
     jargs = [jnp.asarray(a) for a in args]
     targs = [torch.from_numpy(a) for a in args]
     if state_dtype == "bf16":
@@ -242,11 +250,19 @@ def cuda():
     return torch.device("cuda")
 
 
+# the card's tiles take 64 rows and pad K and the gate columns to 16 and 8:
+# one row, a part tile, ragged tiles, and odd widths
+CARD_SHAPES = [(1, {}), (63, {}), (1000, {}), (4097, {}), (1000, ODD)]
+CARD_IDS = ["1", "63", "1000", "4097", "1000-odd"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(GRU_CASES))
-def test_gru_kernel_matches_plain_on_card(cuda, case):
+@pytest.mark.parametrize("n,widths", CARD_SHAPES, ids=CARD_IDS)
+def test_gru_kernel_matches_plain_on_card(cuda, n, widths, case):
     cd, state_dtype, _ = GRU_CASES[case]
-    args = [torch.from_numpy(a).to(cuda) for a in _gru_inputs(1000)]
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _gru_inputs(n, **widths)]
     args[2][::7] *= 2.7e4                # stream-sized dts, up to ~2.7e6
     if state_dtype == "bf16":
         args[:2] = [a.bfloat16() for a in args[:2]]
@@ -290,18 +306,20 @@ def test_attention_kernel_matches_plain_on_card(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(GRU_CASES))
-def test_gru_bwd_kernel_matches_plain_on_card(cuda, case):
+@pytest.mark.parametrize("n,widths", CARD_SHAPES, ids=CARD_IDS)
+def test_gru_bwd_kernel_matches_plain_on_card(cuda, n, widths, case):
     """K2 against its plain version on the card, at dts up to ~2.7e6, and
     two launches bit-identical (no float atomics)."""
     cd, state_dtype, _ = GRU_CASES[case]
-    args = [torch.from_numpy(a).to(cuda) for a in _gru_inputs(1000, seed=2)]
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _gru_inputs(n, seed=2, **widths)]
     args[2][::7] *= 2.7e4
     if state_dtype == "bf16":
         args[:2] = [a.bfloat16() for a in args[:2]]
     if cd is not None:
         cdt = getattr(torch, cd)
         args[3], args[5] = args[3].to(cdt), args[5].to(cdt)
-    dh = torch.randn(1000, 100, device=cuda,
+    dh = torch.randn(n, args[0].shape[1], device=cuda,
                      generator=torch.Generator(cuda).manual_seed(1))
     before = gru_memory_fused_bwd.launches
     got = gru_memory_fused_bwd(*args, dh, cd)
