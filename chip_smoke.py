@@ -84,6 +84,67 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+COLD_BYTES = 100e6   # data touched between two launches on one input set
+
+
+def cuda_ms_cold(torch, fns, iters: int = 24) -> float:
+    """Mean device time of one call with the 50 MB L2 cold: ``fns`` are
+    calls on independent input sets, together over ``COLD_BYTES``, called
+    in turn back to back, so that a set's data has left L2 by its next
+    call; CUDA events over ``iters`` calls after one round of warm-up."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fns[i % len(fns)]()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fns, iters: int = 24) -> float:
+    """Mean device time of one call: the summed device time of every
+    kernel the calls launch (``torch.profiler``), over ``iters`` calls
+    rotating over ``fns`` after one round of warm-up; the median of three
+    profiling sessions, since a session has now and then come back empty
+    or short of records.  Where the host takes longer to prepare a call
+    than the device to run it, CUDA events around back-to-back calls time
+    the host; this does not."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    totals = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fns[i % len(fns)]()
+            torch.cuda.synchronize()
+        totals.append(sum(e.self_device_time_total
+                          for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA))
+    total = statistics.median(totals)
+    if total <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return total / 1e3 / iters
+
+
+TIMING_NOTE = ("ms, plain_ms and library_ms: device time from the profiler "
+               "with the L2 cold (input sets rotated over 100 MB); ms_warm: "
+               "the same on one set; ms_events: CUDA events around the cold "
+               "calls, which include the host's time to prepare each call")
+
+
+def _sets_for(nbytes: float) -> int:
+    """Input sets to rotate so that the data between two calls on one set
+    exceeds ``COLD_BYTES``."""
+    return 1 + max(1, -(-int(COLD_BYTES) // int(nbytes)))
+
+
 def phase_device(torch):
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: chip_smoke.py needs a card")
@@ -152,11 +213,10 @@ def _nbytes(*ts) -> int:
 
 def phase_kernels(torch, stream):
     """Kernel vs plain version at main-path shapes; returns JSON rows."""
-    from gnnflow_tpu_torch.ops.attention_fused import (
-        neighborhood_attention, neighborhood_attention_ref)
     from gnnflow_tpu_torch.ops.gru_fused import (
         gru_memory_fused, gru_memory_fused_bwd, gru_memory_fused_bwd_ref,
         gru_memory_fused_ref)
+    from gnnflow_tpu_torch.ops.sampling import sample_hops
     from gnnflow_tpu_torch.train import dedup_cap
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -331,7 +391,6 @@ def phase_kernels(torch, stream):
 
     # ---- K3: B = 12,000 roots, F = 10, H = 2, dh = 50 ------------------
     B, F, H, dh = 12_000, 10, 2, 50
-    D = H * dh
     mask = torch.rand(B, F, **w) > 0.3
     mask[::97] = False                      # some rows fully masked
     k3 = {}
@@ -340,33 +399,20 @@ def phase_kernels(torch, stream):
     for name, cdt, rtol, atol in (("float32", torch.float32, 1e-5, 1e-5),
                                   ("bfloat16", torch.bfloat16, 2 ** -6,
                                    1e-5)):
-        q = torch.randn(B, H, dh, **w).to(cdt)
-        kv = torch.randn(B, F, 2 * D, **w).to(cdt)   # fused K/V projection
-        k = kv[..., :D].reshape(B, F, H, dh)
-        v = kv[..., D:].reshape(B, F, H, dh)
-        got = neighborhood_attention(q, k, v, mask)
-        torch.cuda.synchronize()
-        want = neighborhood_attention_ref(q, k, v, mask).float()
-        diff = (got.float() - want).abs()
-        err = diff.max().item()
-        if not bool((diff <= atol + rtol * want.abs()).all()) \
-                or got[::97].abs().max().item() != 0.0:
-            raise AssertionError(f"K3 {name}: max_abs_err {err} beyond "
-                                 f"rtol {rtol} atol {atol}, or a fully "
-                                 "masked row is not 0")
-        tol = {"rtol": rtol, "atol": atol}
-        ms = cuda_ms(torch, lambda: neighborhood_attention(q, k, v, mask))
-        plain_ms = cuda_ms(
-            torch, lambda: neighborhood_attention_ref(q, k, v, mask))
-        # data-dependent work: only valid slots' k and v rows are needed
-        n_valid = int(mask.sum().item())
-        nbytes = _nbytes(q, mask, got) + 2 * n_valid * D * q.element_size()
-        flops = 4.0 * n_valid * D
-        bound, by = _bound(nbytes, flops, name)
-        k3[name] = dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                        library_ms=None, bound_ms=bound, bound_by=by)
+        k3[name] = _kernel_k3(torch, w, mask, cdt, rtol, atol)
         _log("kernels", kernel="neighborhood_attention", dtype=name,
-             shape=[B, F, H, dh], valid_slots=n_valid, **k3[name])
+             shape=[B, F, H, dh], **k3[name])
+    # the mask of a real sampled eval batch (mid-way through phase 4's
+    # timed batches) on the same widths, bf16
+    full = stream["full"]
+    b = _take(full, 4000, full.dst, 19)[-1]
+    real_mask = sample_hops(
+        stream["dg"], torch.from_numpy(b.target_nodes).cuda(),
+        torch.from_numpy(b.ts).cuda(), fanout=F)[0][0].nbr_mask.contiguous()
+    real = _kernel_k3(torch, w, real_mask, torch.bfloat16, 2 ** -6, 1e-5)
+    real["batch"] = 18
+    _log("kernels", kernel="neighborhood_attention", dtype="bfloat16",
+         mask="eval batch 18", shape=list(real_mask.shape) + [H, dh], **real)
     rows.append(dict(
         name="neighborhood_attention", route="cuda",
         source="gnnflow_tpu_torch/csrc/attention_fused.cu",
@@ -377,9 +423,62 @@ def phase_kernels(torch, stream):
                             if kk != "tol"},
         library_note="none: scaled_dot_product_attention has no LeakyReLU "
                      "score and not these masking semantics",
-        float32=k3["float32"]))
+        timing_note=TIMING_NOTE,
+        float32=k3["float32"], real_eval_mask=real))
     rows.append(_kernel_k4(torch, stream, w))
     return rows
+
+
+def _kernel_k3(torch, w, mask, cdt, rtol, atol):
+    """K3 against its plain version on ``mask`` [B, 10] with q [B, 2, 50]
+    and k, v column slices of one fused kv [B, 10, 200] in ``cdt`` (as
+    the layer has them), fully masked rows exactly 0 and two launches
+    bit-identical; times with the L2 cold and warm."""
+    from gnnflow_tpu_torch.ops import attention_fused
+    from gnnflow_tpu_torch.ops.attention_fused import (
+        neighborhood_attention, neighborhood_attention_ref)
+    (B, F), H, dh = mask.shape, 2, 50
+    D = H * dh
+
+    def operands():
+        q = torch.randn(B, H, dh, **w).to(cdt)
+        kv = torch.randn(B, F, 2 * D, **w).to(cdt)   # fused K/V projection
+        return (q, kv[..., :D].reshape(B, F, H, dh),
+                kv[..., D:].reshape(B, F, H, dh), mask)
+
+    args = operands()
+    got = neighborhood_attention(*args)
+    again = neighborhood_attention(*args)
+    torch.cuda.synchronize()
+    want = neighborhood_attention_ref(*args).float()
+    diff = (got.float() - want).abs()
+    err = diff.max().item()
+    empty = ~mask.any(1)
+    identical = bool(torch.equal(got, again))
+    if not bool((diff <= atol + rtol * want.abs()).all()) \
+            or got[empty].any() or not identical:
+        raise AssertionError(f"K3 {cdt}: max_abs_err {err} beyond rtol "
+                             f"{rtol} atol {atol}, a fully masked row is "
+                             f"not 0, or reruns differ ({identical})")
+    # data-dependent work: only valid slots' k and v rows are needed
+    n_valid = int(mask.sum().item())
+    es = got.element_size()
+    nbytes = _nbytes(args[0], mask, got) + 2 * n_valid * D * es
+    bound, by = _bound(nbytes, 4.0 * n_valid * D, str(cdt)[6:])
+    sets = [args] + [operands() for _ in range(_sets_for(nbytes) - 1)]
+    kernel = [lambda a=a: neighborhood_attention(*a) for a in sets]
+    plain = [lambda a=a: neighborhood_attention_ref(*a) for a in sets]
+    return dict(
+        max_abs_err=err, tol={"rtol": rtol, "atol": atol},
+        bit_identical_reruns=identical,
+        ms=device_ms(torch, kernel), ms_warm=device_ms(torch, kernel[:1]),
+        ms_events=cuda_ms_cold(torch, kernel),
+        plain_ms=device_ms(torch, plain), library_ms=None, bound_ms=bound, bound_by=by,
+        valid_fraction=n_valid / (B * F), input_sets=len(sets),
+        # path and grid (the kernels of a parent tree timed in turn may
+        # predate the plan)
+        plan=(attention_fused.plan(*args[:3], got)
+              if hasattr(attention_fused, "plan") else None))
 
 
 def _gru_library_ms(torch, mem, mail, dts, ki, kh, bi, bh, tw, tb, cdt,
@@ -445,19 +544,27 @@ def _kernel_k4(torch, stream, w):
                              f"{n_uniq} of cap {cap}")
     del want, diff, abs_sum
     lengths = torch.bincount(seg.long(), minlength=cap)
-    ms = cuda_ms(torch, lambda: sorted_segment_sum(dhs, seg, cap))
-    plain_ms = cuda_ms(torch, lambda: sorted_segment_sum_ref(dhs, seg, cap))
-    library_ms = cuda_ms(torch, lambda: torch.segment_reduce(
-        dhs, "sum", lengths=lengths, axis=0, unsafe=True))
     nbytes = _nbytes(dhs, seg, got)
     bound, by = _bound(nbytes, float(L * D), "float32")
-    # device time of each of K4's three passes
+    # cold L2: dhs sets rotated over 100 MB (seg, 0.5 MB, is shared)
+    sets = [dhs] + [torch.randn(L, D, **w)
+                    for _ in range(_sets_for(nbytes) - 1)]
+    kernel = [lambda x=x: sorted_segment_sum(x, seg, cap) for x in sets]
+    plain = [lambda x=x: sorted_segment_sum_ref(x, seg, cap) for x in sets]
+    library = [lambda x=x: torch.segment_reduce(
+        x, "sum", lengths=lengths, axis=0, unsafe=True) for x in sets]
+    times = dict(ms=device_ms(torch, kernel),
+                 ms_warm=device_ms(torch, kernel[:1]),
+                 ms_events=cuda_ms_cold(torch, kernel),
+                 plain_ms=device_ms(torch, plain),
+                 library_ms=device_ms(torch, library))
+    # device time of each of K4's launches (warm)
     prof = _profile(torch, lambda _: sorted_segment_sum(dhs, seg, cap),
                     range(5), top=3)
     k4 = dict(max_abs_err=err, rel_err=rel, rel_err_over_terms=rel_terms,
               tol=tol,
-              bit_identical_reruns=identical, ms=ms, plain_ms=plain_ms,
-              library_ms=library_ms, bound_ms=bound, bound_by=by,
+              bit_identical_reruns=identical, **times,
+              bound_ms=bound, bound_by=by, input_sets=len(sets),
               n_uniq=n_uniq, longest_segment=int(lengths.max().item()),
               passes_ms=prof if isinstance(prof, str) else prof["top"])
     _log("kernels", kernel="sorted_segment_sum", dtype="float32",
@@ -468,7 +575,8 @@ def _kernel_k4(torch, stream, w):
         replaces="gnnflow_tpu/ops/segment_pallas.py:165",
         shapes={"dhs": [L, D], "seg": [L], "cap": cap}, dtype="float32",
         **{k: v for k, v in k4.items() if k != "tol"},
-        library_note="torch.segment_reduce(sum) with the segment lengths")
+        library_note="torch.segment_reduce(sum) with the segment lengths",
+        timing_note=TIMING_NOTE)
 
 
 TGN = dict(dim_node=0, dim_time=100, dim_embed=100, num_layers=1,

@@ -16,230 +16,293 @@
 // negligible, so it is memory-bound.  The TPU kernel carries partial sums
 // across a sequential grid in a VMEM window; blocks here run in no order,
 // so nothing is carried between them.  Segment lengths are skewed: the
-// dedup's invalid instances (empty neighbour slots) all join its last
-// rank, 90,528 of the 132,000 rows of an early REDDIT-shaped batch, so a
-// warp per output row would sum one segment serially.  Three passes over
-// fixed chunks of kChunk rows instead:
+// dedup's invalid instances (empty neighbour slots) all join the last
+// valid rank, n_uniq - 1: 90,528 of the 132,000 rows of an early
+// REDDIT-shaped batch, while the median segment has a few rows.
 //
-//   1. chunk_ends: a warp per chunk sums the rows of its first and of its
-//      last segment, where that segment crosses the chunk's edge, into
-//      part_first[c] and part_last[c] (the whole chunk into both when one
-//      segment covers it).
-//   2. rows: a warp per output row finds the row's range [lo, hi) in seg
-//      by binary search; it writes 0 when the range is empty and the sum
-//      of dhs[lo:hi] when the range lies in one chunk, and leaves a
-//      segment that crosses a chunk edge to pass 3.
-//   3. spans: a block per chunk edge; the block at the first edge a
-//      segment crosses sums that segment's chunk partials, its 8 warps
-//      over interleaved partials, then the warps' sums in warp order.
+// Two launches over fixed tiles of kTile = 512 rows:
 //
-// Every output row is written once, by one thread per value, from sums
-// taken in one fixed order; no atomics, so two launches give identical
-// bits.  Lanes run over the columns, so each row is one contiguous warp
-// load; a warp keeps 4 rows' loads in flight and adds them in row order.
+//   1. tiles: a block per tile reads the tile's seg once into shared
+//      memory; each of its 16 warps walks 32 rows in order, lanes over the
+//      columns in 16-byte vectors, 8 rows' loads in flight, and writes
+//      every segment that starts and ends inside its rows straight to
+//      out, with zeros for ranks skipped between two rows.  The pieces of
+//      segments that cross a warp's edge go to shared memory, and warp 0
+//      joins them in warp order: a segment inside the tile is written to
+//      out; the piece of one that crosses the tile's left edge (or the
+//      whole tile, if one segment covers it) goes to part_l[tile], the
+//      piece of one that starts in the tile and crosses its right edge to
+//      part_r[tile].  All blocks also share the zeros of ranks below
+//      seg[0] and above seg[L-1] (the dedup leaves cap - n_uniq of them,
+//      34,000 rows on the first batch, too many for one block).
+//   2. spans: a block per tile edge; the block at the first edge a
+//      segment crosses finds, with one load per thread, the tile where it
+//      ends, and sums part_r of the tile where it starts and part_l of
+//      the tiles after it, its 16 warps over interleaved terms, then the
+//      warps' sums in warp order.  The 90,528-row segment has ~177 terms.
+//
+// So every output row is written once, from sums taken in one fixed
+// order; no atomics on values, and two launches give identical bits.
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kChunk = 64;        // rows per chunk (passes 1 and 3)
-constexpr int kWarpsPerBlock = 8;
-constexpr int kColsPerLane = 4;
-constexpr int kPass = 32 * kColsPerLane;  // columns a warp sums per pass
-constexpr int kBatch = 4;         // rows whose loads a warp keeps in flight
+constexpr int kWarps = 16;
+constexpr int kRowsPerWarp = 32;
+constexpr int kTile = kWarps * kRowsPerWarp;
+constexpr int kBatch = 8;          // rows whose loads a lane keeps in flight
 
-// First i in [0, n) with s[i] >= r, else n.
-__device__ __forceinline__ int lower_bound(const int* __restrict__ s, int n,
-                                           int r) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = lo + ((hi - lo) >> 1);
-    if (__ldg(s + mid) < r)
-      lo = mid + 1;
-    else
-      hi = mid;
+template <int VW>
+struct Vec;
+template <>
+struct Vec<4> {
+  using T = float4;
+  static __device__ __forceinline__ T zero() {
+    return make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  return lo;
+  static __device__ __forceinline__ T add(T a, T b) {
+    return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+  }
+};
+template <>
+struct Vec<1> {
+  using T = float;
+  static __device__ __forceinline__ T zero() { return 0.f; }
+  static __device__ __forceinline__ T add(T a, T b) { return a + b; }
+};
+
+struct Args {
+  const float* dhs;
+  const int* seg;
+  float* out;
+  float* part_l;
+  float* part_r;
+  int L, D, cap;
+};
+
+// vector column c of row r of a [*, D] array, D = DV * VW
+template <int VW>
+__device__ __forceinline__ typename Vec<VW>::T* at(float* base, long long r,
+                                                   int DV, int c) {
+  return reinterpret_cast<typename Vec<VW>::T*>(base) + r * DV + c;
+}
+template <int VW>
+__device__ __forceinline__ typename Vec<VW>::T load(const float* base,
+                                                    long long r, int DV,
+                                                    int c) {
+  return __ldg(reinterpret_cast<const typename Vec<VW>::T*>(base) + r * DV
+               + c);
 }
 
-// acc[j] += rows first, first + stride, ... (count rows, in that order) of
-// src at columns c0 + lane + 32 j.
-__device__ __forceinline__ void add_rows(const float* __restrict__ src,
-                                         long long first, long long stride,
-                                         int count, int D, int c0, int lane,
-                                         float acc[kColsPerLane]) {
-  int k = 0;
-  for (; k + kBatch <= count; k += kBatch) {
-    float v[kBatch][kColsPerLane];
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const float* row = src + (first + (k + u) * stride) * D + c0;
-#pragma unroll
-      for (int j = 0; j < kColsPerLane; ++j) {
-        const int d = lane + 32 * j;
-        v[u][j] = c0 + d < D ? __ldg(row + d) : 0.0f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u)
-#pragma unroll
-      for (int j = 0; j < kColsPerLane; ++j) acc[j] += v[u][j];
-  }
-  for (; k < count; ++k) {
-    const float* row = src + (first + k * stride) * D + c0;
-#pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) {
-      const int d = lane + 32 * j;
-      if (c0 + d < D) acc[j] += __ldg(row + d);
-    }
-  }
+// Zero rows [lo, hi) of out, the vectors split evenly over the grid.
+template <int VW>
+__device__ __forceinline__ void zero_rows(float* out, long long lo,
+                                          long long hi, int DV) {
+  using V = Vec<VW>;
+  if (hi <= lo) return;
+  const long long n = (hi - lo) * DV;
+  const long long per = (n + gridDim.x - 1) / gridDim.x;
+  const long long a = blockIdx.x * per;
+  const long long b = a + per < n ? a + per : n;
+  typename V::T* dst = at<VW>(out, lo, DV, 0);
+  for (long long i = a + threadIdx.x; i < b; i += blockDim.x)
+    dst[i] = V::zero();
 }
 
-__device__ __forceinline__ void store_row(float* __restrict__ dst, int D,
-                                          int c0, int lane,
-                                          const float acc[kColsPerLane]) {
-#pragma unroll
-  for (int j = 0; j < kColsPerLane; ++j) {
-    const int d = c0 + lane + 32 * j;
-    if (d < D) dst[d] = acc[j];
-  }
-}
-
-// The sum of dhs rows [lo, hi) into dst, and into dst2 unless it is null
-// (rows of D values).
-__device__ __forceinline__ void sum_range(const float* __restrict__ dhs,
-                                          int lo, int hi, int D, int lane,
-                                          float* dst, float* dst2) {
-  for (int c0 = 0; c0 < D; c0 += kPass) {
-    float acc[kColsPerLane] = {0.0f, 0.0f, 0.0f, 0.0f};
-    add_rows(dhs, lo, 1, hi - lo, D, c0, lane, acc);
-    store_row(dst, D, c0, lane, acc);
-    if (dst2 != nullptr) store_row(dst2, D, c0, lane, acc);
-  }
-}
-
-// Pass 1: a warp per chunk of rows [r0, r1).
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-chunk_ends_kernel(const float* __restrict__ dhs, const int* __restrict__ seg,
-                  float* __restrict__ part_first,
-                  float* __restrict__ part_last, int L, int D, int n_chunks) {
-  const int lane = threadIdx.x & 31;
-  const int c = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (c >= n_chunks) return;
-  const int r0 = c * kChunk;
-  const int r1 = min(r0 + kChunk, L);
-  const int f = __ldg(seg + r0), l = __ldg(seg + r1 - 1);
-  const bool f_crosses = r0 > 0 && __ldg(seg + r0 - 1) == f;
-  const bool l_crosses = r1 < L && __ldg(seg + r1) == l;
-  float* first = part_first + (long long)c * D;
-  float* last = part_last + (long long)c * D;
-  if (f == l) {
-    if (f_crosses || l_crosses) sum_range(dhs, r0, r1, D, lane, first, last);
-    return;
-  }
-  if (f_crosses)
-    sum_range(dhs, r0, r0 + lower_bound(seg + r0, r1 - r0, f + 1), D, lane,
-              first, nullptr);
-  if (l_crosses)
-    sum_range(dhs, r0 + lower_bound(seg + r0, r1 - r0, l), r1, D, lane,
-              last, nullptr);
-}
-
-// Pass 2: a warp per output row r.
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-rows_kernel(const float* __restrict__ dhs, const int* __restrict__ seg,
-            float* __restrict__ out, int L, int D, int cap) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (r >= cap) return;
-  const int lo = lower_bound(seg, L, r);
-  const int hi = lower_bound(seg, L, r + 1);
-  if (lo < hi && lo / kChunk != (hi - 1) / kChunk) return;  // pass 3's
-  sum_range(dhs, lo, hi, D, lane, out + (long long)r * D, nullptr);
-}
-
-// Pass 3: a block per chunk edge e (between chunks e - 1 and e).
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-spans_kernel(const int* __restrict__ seg,
-             const float* __restrict__ part_first,
-             const float* __restrict__ part_last, float* __restrict__ out,
-             int L, int D, int cap) {
-  __shared__ float warp_sums[kWarpsPerBlock][kPass];
-  const int e = blockIdx.x + 1;
-  const int b = e * kChunk;
-  const int s = __ldg(seg + b);
-  // only the first edge a segment crosses owns it
-  if (__ldg(seg + b - 1) != s || s < 0 || s >= cap) return;
-  if (e > 1 && __ldg(seg + b - kChunk - 1) == s) return;
+template <int VW>
+__global__ void __launch_bounds__(kWarps * 32) tiles_kernel(Args a) {
+  using V = Vec<VW>;
+  using T = typename V::T;
+  __shared__ int s_seg[kTile + 2];             // rows t0 - 1 .. t1
+  __shared__ T s_pl[kWarps][32];
+  __shared__ T s_pr[kWarps][32];
+  const int DV = a.D / VW;
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
-  const int c_a = e - 1;
-  const int c_b = (lower_bound(seg, L, s + 1) - 1) / kChunk;
-  // terms in row order: part_last[c_a], then part_first[c_a + 1 .. c_b];
-  // warp w takes terms w, w + 8, ...
-  const int n_terms = c_b - c_a + 1;
-  const int mine = n_terms > w ? (n_terms - w + kWarpsPerBlock - 1) /
-                                     kWarpsPerBlock
-                               : 0;
-  for (int c0 = 0; c0 < D; c0 += kPass) {
-    float acc[kColsPerLane] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (mine > 0) {
-      if (w == 0) {
-        add_rows(part_last, c_a, 1, 1, D, c0, lane, acc);
-        add_rows(part_first, c_a + kWarpsPerBlock, kWarpsPerBlock, mine - 1,
-                 D, c0, lane, acc);
-      } else {
-        add_rows(part_first, c_a + w, kWarpsPerBlock, mine, D, c0, lane,
-                 acc);
+  const int t0 = blockIdx.x * kTile;
+  const int t1 = min(t0 + kTile, a.L);
+  zero_rows<VW>(a.out, 0, __ldg(a.seg), DV);
+  zero_rows<VW>(a.out, __ldg(a.seg + a.L - 1) + 1, a.cap, DV);
+  for (int i = threadIdx.x; i < t1 - t0 + 2; i += blockDim.x) {
+    const int r = t0 - 1 + i;
+    s_seg[i] = (r >= 0 && r < a.L) ? __ldg(a.seg + r) : -1;
+  }
+  __syncthreads();
+  const int* S = s_seg + 1 - t0;               // S[r] for r in [t0-1, t1]
+  const int lo = t0 + w * kRowsPerWarp;
+  const int hi = min(lo + kRowsPerWarp, t1);
+  // a piece is open on a side when its segment goes on across that edge
+  const bool open_l = lo < hi && S[lo - 1] == S[lo];
+  const bool open_r = lo < hi && S[hi] == S[hi - 1];
+  for (int c0 = 0; c0 < DV; c0 += 32) {
+    const int c = c0 + lane;
+    const bool col = c < DV;
+    if (lo < hi) {
+      int cur = S[lo];
+      bool first = true;                       // cur is the rows' first
+      T acc = V::zero();
+      if (lo > 0 && col)                       // ranks skipped before lo
+        for (int r = S[lo - 1] + 1; r < cur; ++r)
+          *at<VW>(a.out, r, DV, c) = V::zero();
+      for (int i0 = lo; i0 < hi; i0 += kBatch) {
+        T x[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          x[u] = (i0 + u < hi && col) ? load<VW>(a.dhs, i0 + u, DV, c)
+                                      : V::zero();
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int i = i0 + u;
+          if (i < hi) {
+            const int s = S[i];
+            if (s != cur) {                    // the same in every lane
+              if (col) {
+                if (first && open_l)
+                  s_pl[w][lane] = acc;
+                else
+                  *at<VW>(a.out, cur, DV, c) = acc;
+                for (int r = cur + 1; r < s; ++r)
+                  *at<VW>(a.out, r, DV, c) = V::zero();
+              }
+              acc = V::zero();
+              cur = s;
+              first = false;
+            }
+            acc = V::add(acc, x[u]);
+          }
+        }
+      }
+      if (col) {
+        if (first && open_l)
+          s_pl[w][lane] = acc;
+        else if (open_r)
+          s_pr[w][lane] = acc;
+        else
+          *at<VW>(a.out, cur, DV, c) = acc;
       }
     }
-#pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j)
-      warp_sums[w][lane + 32 * j] = acc[j];
     __syncthreads();
-    if (w == 0) {
-#pragma unroll
-      for (int j = 0; j < kColsPerLane; ++j) {
-        float total = warp_sums[0][lane + 32 * j];
-        for (int k = 1; k < kWarpsPerBlock; ++k)
-          total += warp_sums[k][lane + 32 * j];
-        acc[j] = total;
+    if (w == 0 && col) {
+      // join the pieces in row order: carry holds the open segment
+      bool active = S[t0 - 1] == S[t0];        // from the previous tile
+      bool from_prev = active;
+      T carry = V::zero();
+      for (int w2 = 0; w2 < kWarps; ++w2) {
+        const int l2 = t0 + w2 * kRowsPerWarp;
+        const int h2 = min(l2 + kRowsPerWarp, t1);
+        if (l2 >= h2) break;
+        const bool ol = S[l2 - 1] == S[l2];
+        const bool orr = S[h2] == S[h2 - 1];
+        const bool whole = S[l2] == S[h2 - 1];
+        if (ol) {
+          carry = V::add(carry, s_pl[w2][lane]);
+          if (whole && orr) continue;          // goes on through
+          if (from_prev)
+            *at<VW>(a.part_l, blockIdx.x, DV, c) = carry;
+          else
+            *at<VW>(a.out, S[l2], DV, c) = carry;
+          active = false;
+        }
+        if (orr && !(whole && ol)) {
+          carry = s_pr[w2][lane];
+          active = true;
+          from_prev = false;
+        }
       }
-      store_row(out + (long long)s * D, D, c0, lane, acc);
+      if (active)
+        *at<VW>(from_prev ? a.part_l : a.part_r, blockIdx.x, DV, c) = carry;
     }
     __syncthreads();
   }
+}
+
+template <int VW>
+__global__ void __launch_bounds__(kWarps * 32) spans_kernel(Args a) {
+  using V = Vec<VW>;
+  using T = typename V::T;
+  __shared__ T s_sum[kWarps][32];
+  __shared__ int s_end;
+  const int e = blockIdx.x + 1;                // edge between tiles e-1, e
+  const int b = e * kTile;
+  const int s = __ldg(a.seg + b);
+  // only the first edge a segment crosses owns it
+  if (__ldg(a.seg + b - 1) != s) return;
+  if (e > 1 && __ldg(a.seg + b - kTile - 1) == s) return;
+  // the tile where the segment ends: the first t >= e whose right edge it
+  // does not cross
+  if (threadIdx.x == 0) s_end = INT_MAX;
+  __syncthreads();
+  for (int base = e;; base += blockDim.x) {
+    const int t = base + threadIdx.x;
+    const long long r = (long long)(t + 1) * kTile;
+    if (r >= a.L || __ldg(a.seg + r) != s) atomicMin(&s_end, t);
+    __syncthreads();
+    const bool done = s_end != INT_MAX;
+    __syncthreads();
+    if (done) break;
+  }
+  const int n_terms = s_end - e + 2;   // part_r[e-1], part_l[e .. end]
+  const int DV = a.D / VW;
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  for (int c0 = 0; c0 < DV; c0 += 32) {
+    const int c = c0 + lane;
+    const bool col = c < DV;
+    T acc = V::zero();
+    for (int k0 = w; k0 < n_terms; k0 += kWarps * kBatch) {
+      T x[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int k = k0 + u * kWarps;
+        x[u] = (k < n_terms && col)
+                   ? (k == 0 ? load<VW>(a.part_r, e - 1, DV, c)
+                             : load<VW>(a.part_l, e - 1 + k, DV, c))
+                   : V::zero();
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) acc = V::add(acc, x[u]);
+    }
+    if (col) s_sum[w][lane] = acc;
+    __syncthreads();
+    if (w == 0 && col) {
+      T total = s_sum[0][lane];
+      for (int k = 1; k < kWarps; ++k) total = V::add(total, s_sum[k][lane]);
+      *at<VW>(a.out, s, DV, c) = total;
+    }
+    __syncthreads();
+  }
+}
+
+template <int VW>
+cudaError_t launch(const Args& a, cudaStream_t st) {
+  const int n_tiles = (a.L + kTile - 1) / kTile;
+  tiles_kernel<VW><<<n_tiles, kWarps * 32, 0, st>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_tiles < 2) return err;
+  spans_kernel<VW><<<n_tiles - 1, kWarps * 32, 0, st>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// dhs: [L, D] f32 contiguous; seg: [L] i32 contiguous, non-decreasing;
-// out: [cap, D] f32 contiguous, every value written; part_first,
-// part_last: [ceil(L / 64), D] f32 scratch.  L >= 1, cap >= 1.
-// Returns cudaError_t.
+// dhs: [L, D] f32 contiguous; seg: [L] i32 contiguous, non-decreasing,
+// values in [0, cap); out: [cap, D] f32 contiguous, every value written;
+// part_l, part_r: [ceil(L / segment_sum_tile_rows()), D] f32 scratch.
+// L >= 1, cap >= 1, D >= 1.  vec4 != 0: D % 4 == 0 and every pointer
+// 16-byte aligned (16-byte loads and stores).  Returns cudaError_t.
 int sorted_segment_sum(const float* dhs, const int* seg, float* out,
-                       float* part_first, float* part_last, int L, int D,
-                       int cap, void* stream) {
+                       float* part_l, float* part_r, int L, int D, int cap,
+                       int vec4, void* stream) {
+  const Args a{dhs, seg, out, part_l, part_r, L, D, cap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_chunks = (L + kChunk - 1) / kChunk;
-  const int threads = kWarpsPerBlock * 32;
-  chunk_ends_kernel<<<(n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock,
-                      threads, 0, st>>>(dhs, seg, part_first, part_last, L, D,
-                                        n_chunks);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  rows_kernel<<<(cap + kWarpsPerBlock - 1) / kWarpsPerBlock, threads, 0,
-                st>>>(dhs, seg, out, L, D, cap);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || n_chunks < 2) return err;
-  spans_kernel<<<n_chunks - 1, threads, 0, st>>>(seg, part_first, part_last,
-                                                  out, L, D, cap);
-  return cudaGetLastError();
+  return vec4 ? launch<4>(a, st) : launch<1>(a, st);
 }
 
-int segment_sum_chunk_rows() { return kChunk; }
+int segment_sum_tile_rows() { return kTile; }
 
 const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

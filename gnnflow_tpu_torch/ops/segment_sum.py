@@ -66,13 +66,15 @@ def sorted_segment_sum(dhs: torch.Tensor, seg: torch.Tensor,
     if cap == 0 or D == 0:
         return out
     lib = _lib()
-    # per-chunk partial sums of the segments that cross chunk edges
-    chunks = -(-L // lib.segment_sum_chunk_rows())
-    part_first = torch.empty((chunks, D), **f32)
-    part_last = torch.empty((chunks, D), **f32)
+    # per-tile pieces of the segments that cross tile edges
+    tiles = -(-L // lib.segment_sum_tile_rows())
+    part_l = torch.empty((tiles, D), **f32)
+    part_r = torch.empty((tiles, D), **f32)
+    vec4 = D % 4 == 0 and all(t.data_ptr() % 16 == 0
+                              for t in (dhs, out, part_l, part_r))
     err = lib.sorted_segment_sum(
-        dhs.data_ptr(), seg.data_ptr(), out.data_ptr(),
-        part_first.data_ptr(), part_last.data_ptr(), L, D, cap,
+        dhs.data_ptr(), seg.data_ptr(), out.data_ptr(), part_l.data_ptr(),
+        part_r.data_ptr(), L, D, cap, int(vec4),
         torch.cuda.current_stream(dhs.device).cuda_stream)
     _build.check(lib, err, "sorted_segment_sum")
     sorted_segment_sum.launches += 1
@@ -119,8 +121,8 @@ def _lib():
     if lib.sorted_segment_sum.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.sorted_segment_sum.argtypes = [p, p, p, p, p, i, i, i, p]
+        lib.sorted_segment_sum.argtypes = [p, p, p, p, p, i, i, i, i, p]
         lib.sorted_segment_sum.restype = i
-        lib.segment_sum_chunk_rows.argtypes = []
-        lib.segment_sum_chunk_rows.restype = i
+        lib.segment_sum_tile_rows.argtypes = []
+        lib.segment_sum_tile_rows.restype = i
     return lib

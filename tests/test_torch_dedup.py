@@ -91,17 +91,37 @@ def test_dedup_instances_equals_jax(case, cap, use_pallas):
         assert 0 < n <= cap
 
 
-@pytest.mark.parametrize("L,cap,D", [(700, 300, 128), (1000, 64, 128)])
-def test_segment_sum_ref_matches_pallas(L, cap, D):
+@pytest.mark.parametrize("L,cap,D,tail", [
+    pytest.param(700, 300, 128, 0, id="700-300-128"),
+    pytest.param(1000, 64, 128, 0, id="1000-64-128"),
+    # the dedup's shape: the last rows on one rank (its invalid
+    # instances), across the Pallas kernel's 2048-row windows, then ranks
+    # that no row carries
+    pytest.param(3000, 900, 128, 2000, id="3000-900-128-tail2000")])
+def test_segment_sum_ref_matches_pallas(L, cap, D, tail):
     rng = np.random.RandomState(0)
     steps = rng.rand(L) < (cap / L * 0.9)
     seg = np.minimum(np.cumsum(steps), cap - 1).astype(np.int32)
+    if tail:
+        seg[L - tail:] = seg[L - tail - 1]
+        assert seg[-1] < cap - 100         # empty ranks at the end
     dhs = rng.randn(L, D).astype(np.float32)
     want = np.asarray(jseg_sum(jnp.asarray(dhs), jnp.asarray(seg), cap,
                                True))
     got = sorted_segment_sum_ref(torch.from_numpy(dhs),
                                  torch.from_numpy(seg), cap)
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    short = np.arange(cap) != seg[-1] if tail else slice(None)
+    np.testing.assert_allclose(got.numpy()[short], want[short], rtol=1e-5,
+                               atol=1e-5)
+    if tail:
+        # the 2000-term sum: f32 sums in two orders part by more than
+        # 1e-5 where they cancel, so each is held to the exact (f64) sum
+        # within 1e-5 of its terms' magnitudes
+        terms = dhs[seg == seg[-1]].astype(np.float64)
+        exact, mag = terms.sum(0), np.abs(terms).sum(0)
+        for x in (got.numpy(), want):
+            assert (np.abs(x[seg[-1]] - exact) <= 1e-5 * mag).all()
+        assert not got[seg[-1] + 1:].any() and not want[seg[-1] + 1:].any()
     # on the CPU the wrapper is the plain version
     assert torch.equal(sorted_segment_sum(torch.from_numpy(dhs),
                                           torch.from_numpy(seg), cap), got)

@@ -34,9 +34,10 @@ import pytest
 import torch
 
 from gnnflow_tpu_torch.models.modules import masked_softmax
+from gnnflow_tpu_torch.ops import segment_sum as segment_sum_mod
 from gnnflow_tpu_torch.ops.attention_fused import (
     neighborhood_attention, neighborhood_attention_autograd,
-    neighborhood_attention_ref)
+    neighborhood_attention_ref, plan)
 from gnnflow_tpu_torch.ops.gru_fused import (
     gru_memory_fused, gru_memory_fused_autograd, gru_memory_fused_bwd,
     gru_memory_fused_bwd_ref, gru_memory_fused_ref)
@@ -66,7 +67,8 @@ def _attention_inputs(B=300, F=10, H=2, dh=50, seed=0):
     k = rng.randn(B, F, H, dh).astype(np.float32)
     v = rng.randn(B, F, H, dh).astype(np.float32)
     mask = rng.rand(B, F) < 0.7
-    mask[3] = False                      # one row fully masked
+    if B > 3:
+        mask[3] = False                  # one row fully masked
     return q, k, v, mask
 
 
@@ -211,11 +213,28 @@ def test_attention_backward_matches_jax_vjp(jref):
         assert not g[3].any() and not g[7].any(), name
 
 
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
-                                       ("bfloat16", 5e-2)])
-def test_attention_ref_matches_pallas(jref, dtype, tol):
+# (B, F, H, dh) beside the main shape (300, 10, 2, 50): K3's odd shapes,
+# including one destination, a single slot, 32 slots and heads of 5 and
+# 128 columns.  In bf16 the Pallas kernel sums q*k in bf16, so its error
+# grows with dh: the bf16 cases keep dh <= 50.
+ATTENTION_SHAPES = [
+    pytest.param("float32", 1e-5, (300, 10, 2, 50), id="float32-1e-05"),
+    pytest.param("bfloat16", 5e-2, (300, 10, 2, 50), id="bfloat16-0.05"),
+    pytest.param("float32", 1e-5, (1, 1, 1, 37), id="float32-1-1-1-37"),
+    pytest.param("float32", 1e-5, (33, 32, 3, 5), id="float32-33-32-3-5"),
+    pytest.param("float32", 1e-5, (33, 10, 4, 128),
+                 id="float32-33-10-4-128"),
+    pytest.param("bfloat16", 5e-2, (33, 32, 3, 5),
+                 id="bfloat16-33-32-3-5"),
+    pytest.param("bfloat16", 5e-2, (1000, 1, 1, 37),
+                 id="bfloat16-1000-1-1-37"),
+]
+
+
+@pytest.mark.parametrize("dtype,tol,shape", ATTENTION_SHAPES)
+def test_attention_ref_matches_pallas(jref, dtype, tol, shape):
     jnp = jref.jnp
-    q, k, v, mask = _attention_inputs()
+    q, k, v, mask = _attention_inputs(*shape)
     jd, td = getattr(jnp, dtype), getattr(torch, dtype)
     want = np.asarray(jref.attention(jnp.asarray(q, jd), jnp.asarray(k, jd),
                                  jnp.asarray(v, jd), jnp.asarray(mask),
@@ -225,7 +244,8 @@ def test_attention_ref_matches_pallas(jref, dtype, tol):
     assert got.dtype == td
     np.testing.assert_allclose(got.float().numpy(), want, rtol=tol,
                                atol=tol)
-    assert not got[3].any()              # fully masked row is exactly 0
+    if len(mask) > 3:
+        assert not got[3].any()          # fully masked row is exactly 0
     assert torch.equal(
         neighborhood_attention(tq, tk, tv, torch.from_numpy(mask)), got)
 
@@ -240,6 +260,81 @@ def test_masked_softmax_matches_jax(jref):
                                           1))
     got = masked_softmax(torch.from_numpy(s), torch.from_numpy(m), 1)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
+
+
+def _k3_operands(B, F, H, dh, dtype, fused, device="cpu", seed=0):
+    """q, k, v, mask for K3: k and v as column slices of one fused [B, F,
+    2*H*dh] projection (as the layer has them) or as two tensors.  Row 0
+    has no valid slot and row 1 one (the last), where B allows."""
+    g = torch.Generator().manual_seed(seed)
+    D = H * dh
+    q = torch.randn(B, H, dh, generator=g).to(device, dtype)
+    if fused:
+        kv = torch.randn(B, F, 2 * D, generator=g).to(device, dtype)
+        k = kv[..., :D].reshape(B, F, H, dh)
+        v = kv[..., D:].reshape(B, F, H, dh)
+    else:
+        k = torch.randn(B, F, H, dh, generator=g).to(device, dtype)
+        v = torch.randn(B, F, H, dh, generator=g).to(device, dtype)
+    mask = torch.rand(B, F, generator=g) < 0.7
+    mask[::7] = False
+    if B > 1:
+        mask[1] = False
+        mask[1, F - 1] = True
+    return q, k, v, mask.to(device)
+
+
+# (B, F, H, dh, dtype, fused) -> the plan's path, fusion, copy widths,
+# lanes a head and slot groups
+PLANS = [
+    # the TGN main path: one 16-byte copy of k|v a slot, q rows of 200
+    # bytes; in bf16 two slot groups of 16 lanes, 8 lanes a head
+    ((12, 10, 2, 50, torch.bfloat16, True), (1, 1, 16, 8, 8, 2)),
+    ((12, 10, 2, 50, torch.float32, True), (1, 1, 16, 16, 16, 1)),
+    # separate k and v: two copies a slot, of 200 bytes
+    ((12, 10, 2, 50, torch.bfloat16, False), (1, 0, 8, 8, 8, 2)),
+    # 74-byte q rows allow no 4-byte copy: the direct path; in f32 the
+    # 296-byte k|v rows take 8-byte copies and the q rows 4-byte ones, and
+    # an odd dh keeps one slot group
+    ((12, 10, 1, 37, torch.bfloat16, True), (0, 1, 4, 0, 32, 1)),
+    ((12, 10, 1, 37, torch.float32, True), (1, 1, 8, 4, 32, 1)),
+    ((12, 32, 3, 5, torch.float32, False), (1, 0, 4, 4, 8, 1)),
+    # 32 slots of 4 KB (f32) do not fit twice in shared memory; 4 heads of
+    # 128 columns fill the warp
+    ((12, 32, 4, 128, torch.float32, True), (0, 1, 16, 16, 32, 1)),
+    ((12, 32, 4, 128, torch.bfloat16, True), (1, 1, 16, 16, 32, 1)),
+]
+
+
+@pytest.mark.parametrize("shape,want", PLANS,
+                         ids=[f"{b}-{f}-{h}-{d}-{str(t)[6:]}-"
+                              f"{'fused' if fu else 'apart'}"
+                              for (b, f, h, d, t, fu), _ in PLANS])
+def test_attention_plan(shape, want):
+    """K3's path and layout follow the tensors' strides and addresses; a
+    staged layout fits the shared-memory budget twice a warp."""
+    *dims, dtype, fused = shape
+    q, k, v, _ = _k3_operands(*dims, dtype, fused)
+    out = torch.empty_like(q)
+    pl = plan(q, k, v, out)
+    got = (pl["staged"], pl["fused"], pl["w_kv"], pl["w_q"],
+           pl["lanes_per_head"], pl["slot_groups"])
+    assert got == want
+    B, F, H, dh = dims
+    sg, g = pl["slot_groups"], pl["lanes_per_head"]
+    assert 4 * sg * g >= dh and sg * g <= 32
+    if pl["staged"]:
+        row = H * dh * q.element_size()
+        assert pl["pitch"] % 16 == 0 and pl["pitch"] >= 2 * row
+        assert pl["v_off"] * q.element_size() + row <= pl["pitch"]
+        assert 1 <= pl["warps"] <= 4 and pl["smem"] <= 200 * 1024
+        assert pl["slots"] >= F and pl["slots"] in (8, 10, 16, 32)
+        assert pl["smem"] == pl["warps"] * 2 * (pl["q_pitch"]
+                                                + pl["slots"] * pl["pitch"])
+    # every destination has a warp: 4 a staged warp, 1 a direct one
+    per_warp = 4 if pl["staged"] else 1
+    assert pl["blocks"] * pl["warps"] * per_warp >= B
+    assert (pl["blocks"] - 1) * pl["warps"] * per_warp < B
 
 
 @pytest.fixture
@@ -302,6 +397,37 @@ def test_attention_kernel_matches_plain_on_card(cuda, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol[0],
                                atol=tol[1])
     assert not got[3].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 33, 1000])
+@pytest.mark.parametrize("H,dh", [(2, 50), (1, 37), (4, 128), (3, 5)])
+@pytest.mark.parametrize("F", [1, 10, 32])
+def test_attention_kernel_odd_shapes_on_card(cuda, F, H, dh, B):
+    """K3 against its plain version at odd shapes, in both dtypes, with k
+    and v fused (the staged path where alignment allows) and apart (the
+    narrower copies or the direct path); fully masked rows exactly 0, a
+    single valid slot, and two launches bit-identical."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for fused in (True, False):
+            q, k, v, mask = _k3_operands(B, F, H, dh, dtype, fused,
+                                         device=cuda, seed=B + F + dh)
+            before = neighborhood_attention.launches
+            got = neighborhood_attention(q, k, v, mask)
+            again = neighborhood_attention(q, k, v, mask)
+            torch.cuda.synchronize()
+            assert neighborhood_attention.launches == before + 2
+            what = (str(dtype), fused, plan(q, k, v, got))
+            assert torch.equal(got, again), what
+            want = neighborhood_attention_ref(q, k, v, mask)
+            # f32: sum order; bf16: one bf16 ulp of the output
+            tol = (1e-5, 1e-5) if dtype == torch.float32 \
+                else (2 ** -6, 1e-5)
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=tol[0], atol=tol[1],
+                                       msg=lambda m: f"{what}: {m}")
+            empty = ~mask.any(1)
+            assert not got[empty].any(), what
 
 
 @pytest.mark.cuda
@@ -392,3 +518,56 @@ def test_expand_compact_backward_launches_k4_on_card(cuda):
         .index_add_(0, inv, dh.double())
     assert ((up.grad.double() - want).abs().max()
             / want.abs().max()).item() <= 1e-5
+
+
+def _odd_segments(case, tile):
+    """(seg, cap, D) of K4's edge cases; ``tile`` is the kernel's tile."""
+    rng = np.random.RandomState(7)
+    if case == "one segment":              # every row on one rank
+        return np.full(5000, 5, np.int32), 12, 100
+    if case == "tile-long segment":        # rows [tile, 2 tile) on one rank
+        seg = np.sort(rng.randint(0, 900, 3 * tile)).astype(np.int32)
+        seg[tile:2 * tile] = seg[tile]
+        seg[2 * tile:] = np.maximum(seg[2 * tile:], seg[tile] + 1)
+        return seg, 1000, 100
+    if case == "long segment from a tile edge":
+        seg = np.sort(rng.randint(0, 400, 20 * tile + 77)).astype(np.int32)
+        seg[2 * tile:15 * tile + 5] = seg[2 * tile]
+        seg[15 * tile + 5:] = np.maximum(seg[15 * tile + 5:],
+                                         seg[2 * tile] + 1)
+        return seg, 500, 100
+    if case == "clamped":                  # n_uniq > cap: the tail on cap-1
+        cap = 3000
+        steps = rng.rand(20_000) < 0.5
+        return (np.minimum(np.cumsum(steps), cap - 1).astype(np.int32),
+                cap, 100)
+    D = int(case.split()[1])               # "D 1", "D 4", "D 257"
+    seg = np.sort(rng.randint(3, 690, 3000)).astype(np.int32)
+    seg[1000:1700] = seg[1000]
+    return seg, 700, D
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "one segment", "tile-long segment", "long segment from a tile edge",
+    "clamped", "D 1", "D 4", "D 257"])
+def test_segment_sum_kernel_edge_cases_on_card(cuda, case):
+    """K4 against its plain version (f64) where segments cross tiles in
+    every way, for widths without 16-byte rows, and when the dedup's
+    clamp puts many rows on rank cap - 1; ranks no row carries are 0."""
+    tile = segment_sum_mod._lib().segment_sum_tile_rows()
+    seg, cap, D = _odd_segments(case, tile)
+    dhs = np.random.RandomState(8).randn(len(seg), D).astype(np.float32)
+    seg, dhs = torch.from_numpy(seg).to(cuda), torch.from_numpy(dhs).to(cuda)
+    got = sorted_segment_sum(dhs, seg, cap)
+    again = sorted_segment_sum(dhs, seg, cap)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)           # no atomics
+    want = sorted_segment_sum_ref(dhs.double(), seg, cap)
+    err = (got.double() - want).abs()
+    assert (err.max() / want.abs().max()).item() <= 1e-5
+    abs_sum = sorted_segment_sum_ref(dhs.abs().double(), seg, cap)
+    assert (err / abs_sum.clamp_min(1e-300)).max().item() <= 1e-5
+    empty = torch.bincount(seg.long(), minlength=cap) == 0
+    assert empty.any() or case == "clamped"
+    assert not got[empty].any()
