@@ -45,7 +45,22 @@ Phases (each prints one line; any failure raises and exits non-zero):
    state; a free-running card run and a CPU run started from the card's
    first step are reported beside it.  In f32 the dedup's train steps run
    on both sides too, and the card's dedup run is held against its
-   per-instance run.
+   per-instance run.  TGAT in f32 as well (the widths of phase 9, dropout
+   0, the same uniform draws on both sides): eval logits, then train
+   steps on a two-tier layer-dedup ladder.
+9. tgat: TGAT as ``bench.py:127-160`` runs it (REDDIT defaults through
+   ``build_model``: 2 layers, fanouts [10, 10], uniform sampling, no
+   memory, dropout and attention dropout 0.1, bf16 compute, 172-dim edge
+   features, batch 4000) on the same stream: 10 eval batches (K3 twice a
+   batch: 12,000 and 132,000 destinations), 20 train steps with the
+   default trainer (the first calibrates the layer-dedup ladder; K3
+   never, K4 once a step that takes a tier), 5 steps at attention dropout
+   0 and factor 0.5 (K3 and its backward twice a step), 5 at factor 0.01
+   (all fall back, K4 never); ms/step with CUDA events and host ms, peak
+   memory, profiles, and the plain attention's share of a train step's
+   device time; then K3 at the inner layer's 132,000 rows and K4 at the
+   layer boundary against their plain versions, with the tolerances of
+   phase 3.
 
 Then one JSON line with every kernel's numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.
@@ -408,7 +423,8 @@ def phase_kernels(torch, stream):
     b = _take(full, 4000, full.dst, 19)[-1]
     real_mask = sample_hops(
         stream["dg"], torch.from_numpy(b.target_nodes).cuda(),
-        torch.from_numpy(b.ts).cuda(), fanout=F)[0][0].nbr_mask.contiguous()
+        torch.from_numpy(b.ts).cuda(),
+        fanouts=[F])[0][0].nbr_mask.contiguous()
     real = _kernel_k3(torch, w, real_mask, torch.bfloat16, 2 ** -6, 1e-5)
     real["batch"] = 18
     _log("kernels", kernel="neighborhood_attention", dtype="bfloat16",
@@ -502,23 +518,40 @@ def _gru_library_ms(torch, mem, mail, dts, ki, kh, bi, bh, tw, tb, cdt,
 
 
 def _kernel_k4(torch, stream, w):
-    """K4 at the dedup path's shapes: segment ids from a real dedup of the
-    first train batch (12,000 roots x 11 = 132,000 instances), cap of
+    """K4 at the memory dedup's shapes: segment ids from a real dedup of
+    the first train batch (12,000 roots x 11 = 132,000 instances), cap of
     factor 0.35, D = 100 (the memory width; no lane pad on the card)."""
     from gnnflow_tpu_torch.ops.dedup import dedup_instances
     from gnnflow_tpu_torch.ops.sampling import sample_hops
-    from gnnflow_tpu_torch.ops.segment_sum import (sorted_segment_sum,
-                                                   sorted_segment_sum_ref)
     from gnnflow_tpu_torch.train import dedup_cap
     train = stream["train"]
     b = _take(train, 4000, train.dst, 1)[0]
     m = sample_hops(stream["dg"], torch.from_numpy(b.target_nodes).cuda(),
-                    torch.from_numpy(b.ts).cuda(), fanout=10)[0][0]
-    L, D = m.num_all, 100
-    cap = dedup_cap(0.35, L)
+                    torch.from_numpy(b.ts).cuda(), fanouts=[10])[0][0]
+    cap = dedup_cap(0.35, m.num_all)
     _, _, _, n_uniq, _, seg = dedup_instances(m.all_nodes(), m.all_ts(),
                                               m.all_mask(), cap)
-    n_uniq = int(n_uniq)
+    k4 = _k4_check(torch, w, seg, cap, int(n_uniq), 100)
+    _log("kernels", kernel="sorted_segment_sum", dtype="float32",
+         shape=[m.num_all, 100, cap], **k4)
+    return dict(
+        name="sorted_segment_sum", route="cuda",
+        source="gnnflow_tpu_torch/csrc/segment_sum.cu",
+        replaces="gnnflow_tpu/ops/segment_pallas.py:165",
+        shapes={"dhs": [m.num_all, 100], "seg": [m.num_all], "cap": cap},
+        dtype="float32", **{k: v for k, v in k4.items() if k != "tol"},
+        library_note="torch.segment_reduce(sum) with the segment lengths",
+        timing_note=TIMING_NOTE)
+
+
+def _k4_check(torch, w, seg, cap, n_uniq, D):
+    """K4 on ``seg`` [L] (ranks of a real dedup, ``n_uniq`` of them below
+    ``cap``) and random rows [L, D]: held to the plain version in f64,
+    two launches bit-identical, ranks past ``n_uniq`` zero; times with the
+    L2 cold and warm, the plain version and ``torch.segment_reduce``."""
+    from gnnflow_tpu_torch.ops.segment_sum import (sorted_segment_sum,
+                                                   sorted_segment_sum_ref)
+    L = seg.shape[0]
     dhs = torch.randn(L, D, **w)
     got = sorted_segment_sum(dhs, seg, cap)
     again = sorted_segment_sum(dhs, seg, cap)
@@ -530,7 +563,7 @@ def _kernel_k4(torch, stream, w):
     rel, err = _rel(got.double(), want), diff.max().item()
     # each value's error over the sum of its terms' magnitudes, the scale
     # of f32 summation error in any order: holds short segments as
-    # tightly as the 90,528-row one
+    # tightly as long ones
     abs_sum = sorted_segment_sum_ref(dhs.abs().double(), seg, cap)
     rel_terms = (diff / abs_sum.clamp_min(1e-300)).max().item()
     identical = bool(torch.equal(got, again))
@@ -546,7 +579,7 @@ def _kernel_k4(torch, stream, w):
     lengths = torch.bincount(seg.long(), minlength=cap)
     nbytes = _nbytes(dhs, seg, got)
     bound, by = _bound(nbytes, float(L * D), "float32")
-    # cold L2: dhs sets rotated over 100 MB (seg, 0.5 MB, is shared)
+    # cold L2: dhs sets rotated over 100 MB (seg is shared)
     sets = [dhs] + [torch.randn(L, D, **w)
                     for _ in range(_sets_for(nbytes) - 1)]
     kernel = [lambda x=x: sorted_segment_sum(x, seg, cap) for x in sets]
@@ -561,22 +594,11 @@ def _kernel_k4(torch, stream, w):
     # device time of each of K4's launches (warm)
     prof = _profile(torch, lambda _: sorted_segment_sum(dhs, seg, cap),
                     range(5), top=3)
-    k4 = dict(max_abs_err=err, rel_err=rel, rel_err_over_terms=rel_terms,
-              tol=tol,
-              bit_identical_reruns=identical, **times,
-              bound_ms=bound, bound_by=by, input_sets=len(sets),
-              n_uniq=n_uniq, longest_segment=int(lengths.max().item()),
-              passes_ms=prof if isinstance(prof, str) else prof["top"])
-    _log("kernels", kernel="sorted_segment_sum", dtype="float32",
-         shape=[L, D, cap], **k4)
-    return dict(
-        name="sorted_segment_sum", route="cuda",
-        source="gnnflow_tpu_torch/csrc/segment_sum.cu",
-        replaces="gnnflow_tpu/ops/segment_pallas.py:165",
-        shapes={"dhs": [L, D], "seg": [L], "cap": cap}, dtype="float32",
-        **{k: v for k, v in k4.items() if k != "tol"},
-        library_note="torch.segment_reduce(sum) with the segment lengths",
-        timing_note=TIMING_NOTE)
+    return dict(max_abs_err=err, rel_err=rel, rel_err_over_terms=rel_terms,
+                tol=tol, bit_identical_reruns=identical, **times,
+                bound_ms=bound, bound_by=by, input_sets=len(sets),
+                n_uniq=n_uniq, longest_segment=int(lengths.max().item()),
+                passes_ms=prof if isinstance(prof, str) else prof["top"])
 
 
 TGN = dict(dim_node=0, dim_time=100, dim_embed=100, num_layers=1,
@@ -964,6 +986,334 @@ def phase_entry(torch, kernels):
     return result
 
 
+PROBE_BATCH = 80        # of the 169 batches of 4000 in the stream
+
+
+def _tgat(att_dropout=None, layer_dedup="auto", device="cuda"):
+    """TGAT as bench.py:127-160 builds it: the REDDIT defaults of the
+    config registry (2 layers, fanouts [10, 10], uniform sampling,
+    dropout and attention dropout 0.1, 2 heads, time and embedding dims
+    100, no memory) in bf16 compute over f32 parameters, no node input,
+    172-dim edge features, seeded random weights, through ``build_model``
+    and the trainer arguments it returns."""
+    from gnnflow_tpu_torch.config import get_default_config
+    from gnnflow_tpu_torch.models.factory import build_model
+    from gnnflow_tpu_torch.train import Trainer
+    mc, _ = get_default_config("TGAT", "REDDIT")
+    mc["compute_dtype"] = "bfloat16"
+    if att_dropout is not None:
+        mc["att_dropout"] = att_dropout
+    model, kw = build_model("TGAT", mc, 0, 172, seed=0, device=device)
+    return model, Trainer(model, lr=1e-4, layer_dedup=layer_dedup,
+                          device=device, **kw)
+
+
+def _timed_steps(torch, step, batches):
+    """Run ``step`` over ``batches`` with a CUDA event between steps and
+    the host clock beside it: ``(outputs, device ms, host ms)`` per
+    step."""
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(batches) + 1)]
+    host, outs = [], []
+    events[0].record()
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        outs.append(step(b))
+        events[i + 1].record()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return outs, [a.elapsed_time(b) for a, b in zip(events, events[1:])], \
+        host
+
+
+def _plain_attention_spy(model):
+    """Record the inputs of each layer's last plain-attention call (the
+    route of training at attention dropout > 0); returns the record and
+    a function that removes the spies."""
+    rec = {}
+    for name, layer in model.layers.items():
+        def spy(q, kv, mask, gen, name=name, orig=layer._attention_plain):
+            rec[name] = (q.detach(), kv.detach(), mask)
+            return orig(q, kv, mask, gen)
+        layer._attention_plain = spy
+
+    def remove():
+        for layer in model.layers.values():
+            del layer._attention_plain
+    return rec, remove
+
+
+def phase_tgat(torch, kernels, stream):
+    """TGAT (``_tgat``) on the REDDIT-shaped stream at batch 4000: eval
+    batches (K3 twice a batch), train steps with the default trainer (the
+    first calibrates the layer-dedup ladder; K3 never runs at attention
+    dropout 0.1, K4 once a step whose first-boundary unique count fits a
+    tier), train steps at attention dropout 0 and factor 0.5 (K3 and its
+    backward twice a step), steps at factor 0.01 (every step falls back,
+    K4 never); then K3 at the inner layer's 132,000 rows and K4 at the
+    layer boundary against their plain versions, and the plain
+    attention's share of a train step's device time.  Returns the launch
+    counts of each path and the kernels' rows."""
+    import numpy as np
+    from gnnflow_tpu_torch.ops.attention_fused import \
+        neighborhood_attention_autograd as attention_autograd
+    from gnnflow_tpu_torch.ops.dedup import dedup_instances
+    from gnnflow_tpu_torch.train import tier_caps
+    from gnnflow_tpu_torch.utils import (average_precision_score,
+                                         roc_auc_score)
+    g, dg, ef, train, full = stream["g"], stream["dg"], stream["ef"], \
+        stream["train"], stream["full"]
+    num_nodes = g.max_vertex_id() + 1
+    B, warm, ev_runs, steps, extra = 4000, 3, 10, 20, 5
+    launches = {}
+
+    def counts():
+        return {name: fn.launches for name, fn in kernels.items()}
+
+    # ---- eval: the default trainer before any train step runs padded --
+    model, trainer = _tgat()
+    state = trainer.init_state(num_nodes, seed=0)
+    ev_batches = _take(full, B, full.dst, warm + ev_runs)
+    for b in ev_batches[:warm]:
+        trainer.eval_step(state, dg, ef, b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(kernels)
+    outs, dev_ms, host_ms = _timed_steps(
+        torch, lambda b: trainer.eval_step(state, dg, ef, b)[1:],
+        ev_batches[warm:])
+    launches["tgat_eval"] = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    pos = torch.cat([o[1][:b.num_valid] for o, b in
+                     zip(outs, ev_batches[warm:])]).float().cpu().numpy()
+    neg = torch.cat([o[2][:b.num_valid] for o, b in
+                     zip(outs, ev_batches[warm:])]).float().cpu().numpy()
+    losses = torch.stack([o[0] for o in outs]).cpu()
+    if not (bool(torch.isfinite(losses).all()) and np.isfinite(pos).all()
+            and np.isfinite(neg).all() and len(pos) == ev_runs * B):
+        raise AssertionError("TGAT eval: non-finite values or wrong shapes")
+    _check_launches(launches["tgat_eval"],
+                    {"gru_memory_fused": 0, "gru_memory_fused_bwd": 0,
+                     "neighborhood_attention": 2 * ev_runs,
+                     "sorted_segment_sum": 0},
+                    f"{ev_runs} TGAT eval batches")
+    y = np.concatenate([np.ones(len(pos)), np.zeros(len(neg))])
+    sc = np.concatenate([pos, neg])
+    ev = dict(batches=ev_runs, batch_size=B,
+              ms_per_batch=statistics.mean(dev_ms),
+              host_ms_per_batch=statistics.mean(host_ms),
+              edges_per_s=B / (statistics.mean(dev_ms) / 1e3),
+              ap=average_precision_score(y, sc), auc=roc_auc_score(y, sc),
+              mean_loss=float(losses.mean()),
+              max_memory_allocated_mib=peak,
+              launches=launches["tgat_eval"],
+              profile=_profile(torch,
+                               lambda b: trainer.eval_step(state, dg, ef, b),
+                               ev_batches[warm:warm + 3]))
+    _log("tgat", path="eval", **ev)
+    del model, trainer, state, outs
+
+    # ---- train, default trainer: the first step calibrates ------------
+    tb = _take(train, B, train.dst, steps + 3)
+    model, trainer = _tgat()
+    state = trainer.init_state(num_nodes, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(kernels)
+
+    def stepper(trainer, state):
+        """A train step that returns its loss and what its layer dedup
+        did: boundaries that took a tier, unique counts."""
+        def step(b):
+            loss = trainer.train_step(state, dg, ef, b)[1]
+            return loss, state.layer_dedup_compact, state.layer_dedup_n_uniq
+        return step
+
+    outs, dev_ms, host_ms = _timed_steps(torch, stepper(trainer, state),
+                                         tb[:steps])
+    launches["tgat_train"] = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    losses = torch.stack([o[0] for o in outs]).cpu()
+    compact = [o[1] for o in outs]
+    takes = trainer.tier_take_stats(state)
+    if not (bool(torch.isfinite(losses).all())
+            and all(bool(torch.isfinite(p).all())
+                    for p in model.parameters())):
+        raise AssertionError("TGAT training produced a non-finite value")
+    # the calibration may leave the dedup off; then no step takes a tier
+    if takes is None or takes["total"] != (steps if trainer.layer_dedup
+                                           is not None else 0):
+        raise AssertionError(f"TGAT tier takes {takes} over {steps} steps")
+    _check_launches(launches["tgat_train"],
+                    {"gru_memory_fused": 0, "gru_memory_fused_bwd": 0,
+                     "neighborhood_attention": 0,
+                     "sorted_segment_sum": sum(compact)},
+                    f"{steps} TGAT train steps at att_dropout=0.1")
+    # the profile's steps also record the plain attention's inputs
+    rec, remove = _plain_attention_spy(model)
+    prof = _profile(torch, lambda b: trainer.train_step(state, dg, ef, b),
+                    tb[steps:steps + 3])
+    remove()
+    attention = _plain_attention_ms(torch, model, rec)
+    busy = prof["device_busy_ms_per_batch"] if isinstance(prof, dict) \
+        else None
+    fast = [t for t, c in zip(dev_ms, compact) if c]
+    slow = [t for t, c in zip(dev_ms, compact) if not c]
+    tr = dict(steps=steps, batch_size=B, calibration=trainer.calibration,
+              first_step_ms=dev_ms[0], first_step_host_ms=host_ms[0],
+              ms_per_step=statistics.mean(dev_ms[warm:]),
+              host_ms_per_step=statistics.mean(host_ms[warm:]),
+              edges_per_s=B / (statistics.mean(dev_ms[warm:]) / 1e3),
+              tier_ms_per_step=_mean_or_none(fast),
+              fallback_ms_per_step=_mean_or_none(slow),
+              tier_takes=takes, compact_steps=sum(compact),
+              first_boundary_n_uniq=[o[2][0] if o[2] else None
+                                     for o in outs],
+              first_boundary_instances=3 * B * 11,
+              loss_first5=float(losses[:5].mean()),
+              loss_last5=float(losses[-5:].mean()),
+              max_memory_allocated_mib=peak,
+              launches=launches["tgat_train"], profile=prof,
+              plain_attention=dict(
+                  **attention, device_ms_per_step=busy,
+                  share_of_step_device_time=(attention["ms"] / busy
+                                             if busy else None)))
+    # the first-boundary unique fraction of each of the calibration's four
+    # probes (the first batch, and its timestamps shifted to a third, two
+    # thirds and the end of the stream), from which it took its ladder
+    t_hi, t_b = float(dg.e_ts.max()), float(tb[0].ts.max())
+    shifts = [np.float32(0.0)] + [np.float32(q * t_hi - t_b)
+                                  for q in (0.33, 0.67, 1.0)]
+    tr["calibration_probe_first_boundary_uniq_fracs"] = [
+        trainer._probe(dg, tb[0].target_nodes, tb[0].ts + d)[1][0]
+        for d in shifts]
+    _log("tgat", path="train", **tr)
+    # K3's shapes: a padded sample of a batch in the middle of the
+    # stream, where histories are long (early batches leave most inner
+    # rows without a neighbour)
+    mid = _take(full, B, full.dst, PROBE_BATCH)[-1]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    inner = trainer._sample(gen, dg, torch.from_numpy(mid.target_nodes)
+                            .cuda(), torch.from_numpy(mid.ts).cuda())[0][0]
+    # K4's: the boundary of the last step of the factor-0.5 path below
+    outer = trainer._sample(gen, dg, torch.from_numpy(tb[extra - 1]
+                                                      .target_nodes).cuda(),
+                            torch.from_numpy(tb[extra - 1].ts).cuda())[1][0]
+    del model, trainer, state, outs, rec
+
+    # ---- attention dropout 0, factor 0.5: K3 and its backward run -----
+    model, trainer = _tgat(att_dropout=0.0, layer_dedup=0.5)
+    state = trainer.init_state(num_nodes, seed=0)
+    _reset(kernels)
+    bwd0 = attention_autograd.backward_calls
+    outs, dev_ms, host_ms = _timed_steps(torch, stepper(trainer, state),
+                                         tb[:extra])
+    launches["tgat_train_att_dropout0"] = counts()
+    att_bwd = attention_autograd.backward_calls - bwd0
+    compact = [o[1] for o in outs]
+    losses = torch.stack([o[0] for o in outs]).cpu()
+    if not bool(torch.isfinite(losses).all()) or sum(compact) < 1:
+        raise AssertionError(f"TGAT at att_dropout=0: losses {losses}, "
+                             f"steps on the dedup {compact}")
+    _check_launches(launches["tgat_train_att_dropout0"],
+                    {"gru_memory_fused": 0, "gru_memory_fused_bwd": 0,
+                     "neighborhood_attention": 2 * extra,
+                     "sorted_segment_sum": sum(compact)},
+                    f"{extra} TGAT train steps at att_dropout=0")
+    if att_bwd != 2 * extra:
+        raise AssertionError(f"K3's backward ran {att_bwd} times in "
+                             f"{extra} TGAT steps at att_dropout=0")
+    ld = dict(factor=0.5, steps=extra, compact_steps=sum(compact),
+              first_boundary_n_uniq=[o[2][0] for o in outs],
+              ms_per_step=statistics.mean(dev_ms),
+              host_ms_per_step=statistics.mean(host_ms),
+              attention_backward_calls=att_bwd, losses=losses.tolist(),
+              launches=launches["tgat_train_att_dropout0"])
+    _log("tgat", path="layer_dedup_att_dropout0", **ld)
+    del model, trainer, state, outs
+
+    # ---- factor 0.01: every step falls back to the padded path --------
+    model, trainer = _tgat(layer_dedup=0.01)
+    state = trainer.init_state(num_nodes, seed=0)
+    _reset(kernels)
+    outs, dev_ms, host_ms = _timed_steps(torch, stepper(trainer, state),
+                                         tb[:extra])
+    launches["tgat_fallback"] = counts()
+    compact = [o[1] for o in outs]
+    takes = trainer.tier_take_stats(state)
+    if any(compact) or takes["fallback_rate"] != 1.0:
+        raise AssertionError(f"TGAT at factor 0.01: steps on the dedup "
+                             f"{compact}, takes {takes}")
+    _check_launches(launches["tgat_fallback"],
+                    {"gru_memory_fused": 0, "gru_memory_fused_bwd": 0,
+                     "neighborhood_attention": 0, "sorted_segment_sum": 0},
+                    f"{extra} TGAT train steps at factor 0.01")
+    fb = dict(factor=0.01, steps=extra, tier_takes=takes,
+              ms_per_step=statistics.mean(dev_ms),
+              host_ms_per_step=statistics.mean(host_ms),
+              launches=launches["tgat_fallback"])
+    _log("tgat", path="fallback", **fb)
+    del model, trainer, state, outs
+
+    # ---- K3 at the inner layer, K4 at the boundary --------------------
+    w = dict(device=torch.device("cuda"),
+             generator=torch.Generator(device="cuda").manual_seed(1))
+    mask = inner.nbr_mask.contiguous()
+    k3 = {}
+    for name, cdt, rtol, atol in (("bfloat16", torch.bfloat16, 2 ** -6,
+                                   1e-5),
+                                  ("float32", torch.float32, 1e-5, 1e-5)):
+        k3[name] = _kernel_k3(torch, w, mask, cdt, rtol, atol)
+        _log("kernels", kernel="neighborhood_attention", dtype=name,
+             at="TGAT l0h0", shape=list(mask.shape) + [2, 50], **k3[name])
+    (cap,) = tier_caps([0.5], outer.num_all)
+    _, _, _, n_uniq, _, seg = dedup_instances(
+        outer.all_nodes(), outer.all_ts(), outer.all_mask(), cap)
+    k4 = _k4_check(torch, w, seg, cap, int(n_uniq), 100)
+    _log("kernels", kernel="sorted_segment_sum", dtype="float32",
+         at="TGAT layer boundary", shape=[outer.num_all, 100, cap], **k4)
+    rows = {"neighborhood_attention": dict(
+                shape=list(mask.shape) + [2, 50], layer="l0h0",
+                batch=PROBE_BATCH,
+                **{k: v for k, v in k3["bfloat16"].items() if k != "tol"},
+                float32=k3["float32"]),
+            "sorted_segment_sum": dict(
+                shape=[outer.num_all, 100], cap=cap, factor=0.5,
+                train_batch=extra,
+                **{k: v for k, v in k4.items() if k != "tol"})}
+    return dict(launches=launches, rows=rows, eval=ev, train=tr,
+                layer_dedup=ld, fallback=fb)
+
+
+def _plain_attention_ms(torch, model, rec):
+    """Device time of the plain attention with its dropout, forward and
+    backward, on the inputs each layer last gave it (``rec``), replayed
+    as the train step runs it; the layers' shapes beside it."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    calls = []
+    for name, (q, kv, mask) in sorted(rec.items()):
+        layer = model.layers[name]
+        dout = torch.randn(q.shape, device=q.device, dtype=torch.float32) \
+            .to(kv.dtype)
+
+        def call(layer=layer, q=q, kv=kv, mask=mask, dout=dout):
+            q_, kv_ = q.detach().requires_grad_(), \
+                kv.detach().requires_grad_()
+            out = layer._attention_plain(q_, kv_, mask, gen)
+            out.backward(dout)
+        calls.append(call)
+
+    def both():
+        for c in calls:
+            c()
+    return dict(ms=device_ms(torch, [both], iters=6),
+                shapes={name: {"q": list(q.shape), "kv": list(kv.shape)}
+                        for name, (q, kv, _) in rec.items()},
+                note="forward and backward of both layers' plain "
+                     "attention, replayed on a step's inputs; profiler "
+                     "device time")
+
+
 def _profile(torch, step, batches, top: int = 10):
     """Device busy time per batch and the kernels that take it, from
     ``torch.profiler`` over ``batches`` (one stream, so kernel times add
@@ -1214,9 +1564,103 @@ def phase_self_check(torch, card: str = "cuda"):
                     and runs["card_dedup"]["fast"] == steps):
                 failed.append(f"train dedup {cd}")
         out[cd] = dict(eval=ev, train=tr_out)
+    out["tgat_float32"] = _self_check_tgat(torch, card, full, graphs, efs,
+                                           num_nodes, failed)
     _log("self_check", eval_batches=4, batch_size=500, **out)
     if failed:
         raise AssertionError(f"CPU vs card: {failed} beyond tolerance")
+
+
+def _cpu_draws(torch, trainer, seed: int) -> None:
+    """Make ``trainer`` take its uniform draws from a CPU generator seeded
+    with ``seed`` (moved to its device), so a CPU and a card run sample
+    alike."""
+    gen = torch.Generator().manual_seed(seed)
+    trainer._uniform = lambda _gen, shape: torch.rand(
+        shape, generator=gen).to(trainer.device)
+
+
+def _self_check_tgat(torch, card, full, graphs, efs, num_nodes, failed):
+    """TGAT in f32 (widths of ``_tgat``, dropout 0), CPU (plain versions)
+    against card (kernels), on the same uniform draws: eval logits over 4
+    padded batches, then 4 train steps on a two-tier layer-dedup ladder
+    (loss, gradients, parameters after each step), with the same tiers
+    taken on both sides and K4 launched once per step on the card's
+    dedup."""
+    from gnnflow_tpu_torch.data import DstRandEdgeSampler, get_batches
+    from gnnflow_tpu_torch.models.dgnn import DGNN
+    from gnnflow_tpu_torch.ops.segment_sum import sorted_segment_sum
+    from gnnflow_tpu_torch.train import Trainer
+    cfg = dict(dim_node=0, dim_edge=172, dim_time=100, dim_embed=100,
+               num_layers=2, num_snapshots=1, att_head=2, dropout=0.0,
+               att_dropout=0.0, use_memory=False)
+    tol = 1e-4
+    tt = dict(loss=1e-4, grad=1e-4, param=1e-5)
+
+    def run(device, layer_dedup):
+        model = DGNN(**cfg, seed=1, device=device)
+        tr = Trainer(model, fanouts=[10, 10], sample_strategy="uniform",
+                     lr=1e-4, layer_dedup=layer_dedup, device=device)
+        _cpu_draws(torch, tr, 5)
+        return dict(model=model, tr=tr, st=tr.init_state(num_nodes),
+                    device=device, trace=[], compact=[])
+
+    ev = {}
+    for device in ("cpu", card):
+        r = run(device, None)
+        logits = []
+        neg = DstRandEdgeSampler(full.dst, seed=3)
+        for i, b in enumerate(get_batches(full, 500, neg)):
+            if i == 4:
+                break
+            _, _, p, n = r["tr"].eval_step(r["st"], graphs[device],
+                                           efs[device], b)
+            logits.append(torch.cat([p, n]).float().cpu())
+        ev[device] = logits
+    err_l = max((a - b).abs().max().item()
+                for a, b in zip(ev["cpu"], ev[card]))
+    if not err_l <= tol:
+        failed.append("tgat eval float32")
+
+    runs = {nm: run(nm if nm == "cpu" else card, (0.3, 0.6))
+            for nm in ("cpu", "card")}
+    neg = DstRandEdgeSampler(full.dst, seed=4)
+    k4_before = sorted_segment_sum.launches
+    steps = 4
+    for i, b in enumerate(get_batches(full, 500, neg)):
+        if i == steps:
+            break
+        for r in runs.values():
+            _, loss, _, _ = r["tr"].train_step(
+                r["st"], graphs[r["device"]], efs[r["device"]], b)
+            r["compact"].append(r["st"].layer_dedup_compact)
+            r["trace"].append(dict(
+                loss=loss.float().cpu(),
+                grad=[q.grad.float().cpu() for q in r["model"].parameters()],
+                param=[q.detach().cpu().clone()
+                       for q in r["model"].parameters()],
+                memory=torch.zeros(1)))
+    k4 = sorted_segment_sum.launches - k4_before
+    pnames = [nm for nm, _ in runs["cpu"]["model"].named_parameters()]
+    errs, worst = _trace_errs(runs["cpu"]["trace"], runs["card"]["trace"],
+                              pnames)
+    finite = all(bool(torch.isfinite(x).all())
+                 for s_ in runs["card"]["trace"]
+                 for x in s_["grad"] + s_["param"])
+    compact = runs["card"]["compact"]
+    ok = (all(max(errs[k]) <= tt[k] for k in tt) and finite
+          and compact == runs["cpu"]["compact"] and sum(compact) >= 1
+          and k4 == (sum(compact) if card != "cpu" else 0))
+    if not ok:
+        failed.append("tgat train layer dedup float32")
+    return dict(eval=dict(batches=4, logits_max_abs_err=err_l, tol=tol),
+                train=dict(steps=steps, ladder=[0.3, 0.6],
+                           per_step_max_err={k: errs[k] for k in tt},
+                           worst_grad_parameter=worst, tol=tt,
+                           compact_steps=compact,
+                           cpu_compact_steps=runs["cpu"]["compact"],
+                           tier_takes=runs["card"]["st"].tier_takes,
+                           k4_launches=k4, finite=finite))
 
 
 def main() -> int:
@@ -1239,18 +1683,24 @@ def main() -> int:
     tr = phase_train(torch, kernels, stream)
     dd = phase_dedup(torch, kernels, stream)
     en = phase_entry(torch, kernels)
-    # launches on each main path, counted from 0 just before it: eval
+    phase_self_check(torch)
+    tg = phase_tgat(torch, kernels, stream)
+    # launches on each main path, counted from 0 just before it: TGN eval
     # batches, train steps at att_dropout 0.2 and at 0, dedup train steps,
-    # fallback steps and eval batches, the entry script's two epochs
+    # fallback steps and eval batches, the entry script's two epochs; TGAT
+    # eval batches, default train steps, steps at att_dropout 0 and factor
+    # 0.5, steps at factor 0.01
     paths = {"eval": sl["launches"], "train": tr["launches"],
              "train_att_dropout0": tr["att_dropout0"]["launches"],
              "dedup_train": dd["launches"],
              "dedup_fallback": dd["fallback"]["launches"],
-             "dedup_eval": dd["eval"]["launches"], "entry": en["launches"]}
+             "dedup_eval": dd["eval"]["launches"], "entry": en["launches"],
+             **tg["launches"]}
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())
-    phase_self_check(torch)
+        if row["name"] in tg["rows"]:
+            row["tgat"] = tg["rows"][row["name"]]
     print(json.dumps({"kernels": rows, "card": dev["smi"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

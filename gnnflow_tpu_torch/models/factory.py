@@ -1,17 +1,17 @@
 """Model factory: a model and the trainer's sampling arguments from a
 config-registry entry.
 
-Counterpart of ``gnnflow_tpu/models/factory.py:build_model`` for TGN.  The
-other registry models raise ``NotImplementedError`` naming the ROADMAP.md
-item that brings them, and so do TGN configs whose sampling the port's
-trainer does not take.
+Counterpart of ``gnnflow_tpu/models/factory.py:build_model`` for TGN and
+TGAT.  The other registry models raise ``NotImplementedError`` naming the
+ROADMAP.md item that brings them, and so do configs whose sampling the
+port's trainer does not take.
 """
 from __future__ import annotations
 
 from gnnflow_tpu_torch.models.dgnn import DGNN
 
 # registry models still to port -> their ROADMAP.md item
-UNPORTED_MODELS = {"tgat": "item 7", "dysat": "item 8", "apan": "item 9",
+UNPORTED_MODELS = {"dysat": "item 8", "apan": "item 9",
                    "graphsage": "item 10", "gat": "item 10"}
 
 
@@ -24,11 +24,10 @@ def build_model(name: str, model_config: dict, dim_node: int, dim_edge: int,
         raise NotImplementedError(
             f"{name} is not ported yet (ROADMAP.md, modules to port, "
             f"{UNPORTED_MODELS[name]})")
-    if name != "tgn":
+    if name not in ("tgn", "tgat"):
         raise ValueError(f"unknown model {name!r}")
     cfg = dict(model_config)
-    sampling = {"sample_strategy": ("recent", "item 7"),
-                "num_snapshots": (1, "item 8"),
+    sampling = {"num_snapshots": (1, "item 8"),
                 "snapshot_time_window": (0, "item 8"),
                 "prop_time": (False, "item 8"),
                 "is_static": (False, "item 10"),
@@ -51,4 +50,5 @@ def build_model(name: str, model_config: dict, dim_node: int, dim_edge: int,
                  mailbox_slots=cfg.get("mailbox_slots", 1),
                  compute_dtype=cfg.get("compute_dtype"), seed=seed,
                  device=device)
-    return model, {"fanouts": cfg["fanouts"]}
+    return model, {"fanouts": cfg["fanouts"],
+                   "sample_strategy": cfg.get("sample_strategy", "recent")}

@@ -183,19 +183,26 @@ class TemporalAttentionLayer(nn.Module):
     dropout, so that case takes the plain attention with dropout on the
     softmax weights (``modules.py:369-370, 424-439``).  Then
     ``w_out([agg | h_dst])``, dropout (training), ReLU and LayerNorm in
-    f32."""
+    f32.
+
+    Without node input (``dim_node == 0``, TGAT's innermost layer,
+    ``modules.py:341-345, 441``) ``h_dst`` is [B, 0]: Q comes from TE(0)
+    alone, so every Q row is the same (a contiguous [B, D] product, not a
+    broadcast), K/V from ``[edge feat | TE(dt)]``, and ``w_out`` reads
+    ``[agg]``."""
 
     def __init__(self, dim_node: int, dim_edge: int, dim_time: int,
                  dim_out: int, num_head: int, gen: torch.Generator,
                  compute_dtype: Optional[torch.dtype] = None,
                  dropout: float = 0.0, att_dropout: float = 0.0):
         super().__init__()
-        if dim_node <= 0 or dim_time <= 0:
+        if dim_time <= 0:
             raise NotImplementedError(
-                "attention without node input or time encoding comes with "
-                "the TGAT/DySAT slices (ROADMAP.md, modules to port)")
+                "attention without time encoding comes with the DySAT "
+                "slice (ROADMAP.md, modules to port, item 8)")
         if dim_out % num_head:
             raise ValueError("dim_out must be a multiple of num_head")
+        self.dim_node = dim_node
         self.dim_out = dim_out
         self.num_head = num_head
         self.dropout, self.att_dropout = dropout, att_dropout
@@ -208,16 +215,23 @@ class TemporalAttentionLayer(nn.Module):
                                  compute_dtype)
         self.layer_norm = nn.LayerNorm(dim_out, eps=1e-5)
 
-    def forward(self, mfg: MFG, h_all: torch.Tensor,
+    def forward(self, mfg: MFG, h_all: Optional[torch.Tensor],
                 edge_feats: Optional[torch.Tensor], train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``h_all`` [B * (1 + F), dim_node] (dst rows, then neighbours),
+        or None without node input."""
         B, F = mfg.num_dst, mfg.fanout
-        h_dst = h_all[:B]
-        h_src = h_all[B:].reshape(B, F, -1)
+        dev = mfg.nbr_dts.device
+        if self.dim_node > 0:
+            h_dst = h_all[:B]
+            h_src = h_all[B:].reshape(B, F, -1)
+        else:
+            h_dst = torch.zeros((B, 0), device=dev)
+            h_src = torch.zeros((B, F, 0), device=dev)
         ef = edge_feats if edge_feats is not None \
             else h_src.new_zeros((B, F, 0))
         tf = self.time_enc(mfg.nbr_dts)
-        ztf = self.time_enc(torch.zeros(B, device=h_all.device))
+        ztf = self.time_enc(torch.zeros(B, device=dev))
         q = self.w_q([h_dst, ztf])
         kv = self.w_kv([h_src, ef, tf])
         D, H = self.dim_out, self.num_head
@@ -229,7 +243,7 @@ class TemporalAttentionLayer(nn.Module):
                 q.reshape(B, H, dh), kv[..., :D].reshape(B, F, H, dh),
                 kv[..., D:].reshape(B, F, H, dh),
                 mfg.nbr_mask).reshape(B, D)
-        rst = self.w_out([agg, h_dst])
+        rst = self.w_out([agg, h_dst] if self.dim_node > 0 else [agg])
         if train:
             rst = dropout(rst, self.dropout, generator)
         return self.layer_norm(torch.relu(rst).float())

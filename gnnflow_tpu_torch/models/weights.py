@@ -4,15 +4,21 @@ and the port's parameters back out as such a tree.
 The Flax tree (nested dicts of arrays, kernels ``[in, out]``) maps onto the
 port's parameter names one for one after renaming the auto-named Flax
 submodules; kernels keep their ``[in, out]`` layout, so nothing is
-transposed.  The TGN tree:
+transposed.  The tree:
 
-- ``updater/FusedGRUCell_0/{ih,hh}/{kernel,bias}``, ``updater/TimeEncode_0/{w,b}``
-- ``l0h0/{w_q,w_kv,w_out}/{kernel,bias}``, ``l0h0/TimeEncode_0/{w,b}``,
-  ``l0h0/LayerNorm_0/{scale,bias}``
+- ``updater/FusedGRUCell_0/{ih,hh}/{kernel,bias}``,
+  ``updater/TimeEncode_0/{w,b}`` (TGN only: a model without memory has no
+  ``updater``)
+- per attention layer ``l{l}h{h}`` (TGN ``l0h0``; TGAT ``l0h0``, ``l1h0``):
+  ``{w_q,w_kv,w_out}/{kernel,bias}``, ``TimeEncode_0/{w,b}``,
+  ``LayerNorm_0/{scale,bias}``
 - ``edge_predictor/{src_fc,dst_fc,out_fc}/{kernel,bias}``
+
+The port names a layer ``layers.l{l}h{h}``.
 """
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -23,6 +29,7 @@ from gnnflow_tpu_torch.models.dgnn import DGNN
 _RENAME = {"FusedGRUCell_0": "cell", "TimeEncode_0": "time_enc",
            "LayerNorm_0": "layer_norm"}
 _FLAX_NAME = {v: k for k, v in _RENAME.items()}
+_LAYER = re.compile(r"l\d+h\d+")
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -37,8 +44,8 @@ def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
 
 def _port_name(path: tuple) -> str:
     parts = [_RENAME.get(p, p) for p in path]
-    if parts[0] == "l0h0":
-        parts[0] = "layers.l0h0"
+    if _LAYER.fullmatch(parts[0]):
+        parts[0] = "layers." + parts[0]
     if len(parts) >= 2 and parts[-2] == "layer_norm" and parts[-1] == "scale":
         parts[-1] = "weight"
     return ".".join(parts)

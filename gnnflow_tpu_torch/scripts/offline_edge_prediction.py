@@ -1,4 +1,4 @@
-"""Offline temporal link-prediction training of TGN on one card.
+"""Offline temporal link-prediction training of TGN or TGAT on one card.
 
     python -m gnnflow_tpu_torch.scripts.offline_edge_prediction \
         --model TGN --data SYNTHETIC --epoch 3 [--device cpu]
@@ -9,8 +9,12 @@ multiple devices or ``lax.scan``): chronological batches with a random
 epoch start, memory reset at every epoch after the first, validation AP
 and AUC after every epoch, a best-AP checkpoint with a memory backup,
 early stopping, and a final test on the best checkpoint.  ``--calibrate``
-calibrates the memory dedup on the last three train batches before
-training; without it the trainer calibrates on its first batch.  One flag
+calibrates the dedups (TGN's memory dedup, TGAT's layer-dedup ladder) on
+the last three train batches before training; without it the trainer
+calibrates on its first batch.  After every epoch a model on the layer
+dedup logs its tier takes and calibrates again when more than 30% of at
+least 20 steps since the last calibration fell back to the padded path
+(``:341-356``).  One flag
 is new: ``--device`` (``cuda`` by default, ``cpu`` for the plain PyTorch
 path).  Options the port lacks raise an error naming the ROADMAP.md item
 that brings them.
@@ -52,7 +56,7 @@ ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
 
 def make_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        description="offline TGN link-prediction training")
+        description="offline TGN/TGAT link-prediction training")
     parser.add_argument("--model", choices=MODELS, required=True)
     parser.add_argument("--data", choices=DATASETS, required=True)
     parser.add_argument("--data-dir", default=None)
@@ -68,8 +72,8 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--edge-cache-ratio", type=float, default=0)
     parser.add_argument("--calibrate", action="store_true",
                         help="measure the (nid, ts) duplication on the last "
-                             "three train batches and pick the memory "
-                             "dedup factor before training")
+                             "three train batches and pick the dedup "
+                             "factors before training")
     parser.add_argument("--cache-transfer-dtype", default="float32",
                         choices=["float32", "bfloat16"])
     parser.add_argument("--node-cache-ratio", type=float, default=0)
@@ -210,7 +214,7 @@ def main(argv=None, checkpoint_path: Optional[str] = None) -> dict:
         it = 0
         # the reference resets TGN memory at every epoch start after the
         # first, so the validation pass's state never leaks into training
-        if epoch > 0:
+        if epoch > 0 and state.memory is not None:
             memory_lib.reset_memory(state.memory)
         for batch in get_batches(train_data, batch_size, train_neg,
                                  num_chunks=args.num_chunks, rng=rng):
@@ -223,6 +227,19 @@ def main(argv=None, checkpoint_path: Optional[str] = None) -> dict:
         if str(device).startswith("cuda"):
             torch.cuda.synchronize()
         epoch_time = time.time() - epoch_start
+        # the layer dedup's takes; calibrate again when the stream drifted
+        # so far that more than 30% of the steps fell back (min 20 steps)
+        tstats = trainer.tier_take_stats(state)
+        if tstats and tstats["total"]:
+            logging.info("epoch %d layer-dedup takes %s (tiers %s, "
+                         "fallback rate %.2f)", epoch, tstats["counts"],
+                         tstats["tiers"], tstats["fallback_rate"])
+            state = trainer.maybe_recalibrate(
+                state, dg,
+                np.concatenate([train_data.src[-batch_size:],
+                                train_data.dst[-batch_size:],
+                                train_data.dst[-batch_size:]]),
+                np.tile(train_data.time[-batch_size:], 3))
         ap, auc, _ = run_eval(val_data, val_neg)
         out["val_ap"].append(ap)
         out["val_auc"].append(auc)
@@ -232,7 +249,8 @@ def main(argv=None, checkpoint_path: Optional[str] = None) -> dict:
         if ap > best_ap:
             best_ap, best_e = ap, epoch
             save_checkpoint(checkpoint_path, model.state_dict(),
-                            memory_lib.backup_memory(state.memory),
+                            memory_lib.backup_memory(state.memory)
+                            if state.memory is not None else None,
                             {"epoch": epoch, "ap": ap})
         if early_stopper.early_stop_check(ap):
             logging.info("early stop at epoch %d (best %d)", epoch, best_e)
@@ -242,7 +260,9 @@ def main(argv=None, checkpoint_path: Optional[str] = None) -> dict:
     ckpt = load_checkpoint(checkpoint_path)
     model.load_state_dict(ckpt["params"])
     model.cast_weights()
-    state.memory = memory_lib.restore_memory(ckpt["memory"], trainer.device)
+    if ckpt["memory"]:
+        state.memory = memory_lib.restore_memory(ckpt["memory"],
+                                                 trainer.device)
     ap, auc, _ = run_eval(test_data, test_neg)
     logging.info("Test ap:%.4f  test auc:%.4f", ap, auc)
     out.update(best_epoch=best_e, test_ap=ap, test_auc=auc)

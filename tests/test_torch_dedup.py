@@ -213,7 +213,7 @@ def test_dedup_first_step_gradients_match_jax(interpret_attention):
     jloss, *_, jgrads = run(jstate, jmfgs, jax.random.PRNGKey(2),
                             jvalid_mask(jb), True, None, jef)
 
-    mfgs, efs, mem_input, _, valid = trainer._inputs(state, dg, tef, b)
+    mfgs, efs, mem_input, _, valid, _ = trainer._inputs(state, dg, tef, b)
     assert isinstance(mem_input, DedupMemoryInput)
     assert state.dedup_n_uniq <= trainer._dedup_cap(mfgs[0][0].num_all)
     pos, neg, _ = trainer.model(mfgs, efs, mem_input, train=True)

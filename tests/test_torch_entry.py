@@ -24,6 +24,7 @@ from gnnflow_tpu_torch.utils import EarlyStopMonitor
 from gnnflow_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                 save_checkpoint)
 from tests.test_torch_train import CFG
+from tests.test_torch_kernels import one_cpu_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("higher_better", [True, False])
@@ -123,8 +124,7 @@ def test_build_dynamic_graph_from_data_configs():
         build_dynamic_graph(**{**data_cfg, "insertion_policy": "replace"})
 
 
-@pytest.mark.parametrize("name", ["tgat", "dysat", "apan", "graphsage",
-                                  "gat"])
+@pytest.mark.parametrize("name", ["dysat", "apan", "graphsage", "gat"])
 def test_build_model_names_the_roadmap_item(name):
     cfg, _ = config.get_default_config(name, "synthetic")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -134,9 +134,10 @@ def test_build_model_names_the_roadmap_item(name):
 def test_build_model_tgn():
     cfg, _ = config.get_default_config("tgn", "synthetic")
     model, kw = build_model("TGN", cfg, 0, 6, seed=1, device="cpu")
-    assert kw == {"fanouts": [10]} and model.dim_memory == 100
+    assert kw == {"fanouts": [10], "sample_strategy": "recent"}
+    assert model.dim_memory == 100
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("tgn", {**cfg, "sample_strategy": "uniform"}, 0, 6,
+        build_model("tgn", {**cfg, "neg_sample_ratio": 2}, 0, 6,
                     device="cpu")
 
 
@@ -144,7 +145,7 @@ def test_build_model_tgn():
     ["--cache", "LRUCache"], ["--num-devices", "2"],
     ["--memory-storage", "bfloat16"], ["--remat-attention"], ["--use-scan"],
     ["--snapshot-time-window", "10"], ["--features-on-host"],
-    ["--model", "TGAT"]])
+    ["--model", "DySAT"]])
 def test_entry_refuses_unported_flags(flags, capsys):
     with pytest.raises(SystemExit):
         entry.main(["--model", "TGN", "--data", "SYNTHETIC", *flags])

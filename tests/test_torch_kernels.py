@@ -571,3 +571,57 @@ def test_segment_sum_kernel_edge_cases_on_card(cuda, case):
     empty = torch.bincount(seg.long(), minlength=cap) == 0
     assert empty.any() or case == "clamped"
     assert not got[empty].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_kernel_at_tgat_inner_layer_on_card(cuda, dtype):
+    """K3 at TGAT's inner layer at batch 4000: 132,000 destinations, 10
+    slots, 2 heads of 50, k and v column slices of one fused projection;
+    every q row the same (the query of TE(0) alone, contiguous), and a
+    uniform-sampling mask: a row is all valid or all masked."""
+    B, F, H, dh = 132_000, 10, 2, 50
+    td = getattr(torch, dtype)
+    gen = torch.Generator(cuda).manual_seed(4)
+    q = torch.randn(1, H, dh, device=cuda, generator=gen).to(td) \
+        .expand(B, H, dh).contiguous()
+    kv = torch.randn(B, F, 4 * dh, device=cuda, generator=gen).to(td)
+    k, v = kv[..., :H * dh].reshape(B, F, H, dh), \
+        kv[..., H * dh:].reshape(B, F, H, dh)
+    mask = (torch.rand(B, device=cuda, generator=gen) < 0.8)[:, None] \
+        .expand(B, F).contiguous()
+    before = neighborhood_attention.launches
+    got = neighborhood_attention(q, k, v, mask)
+    again = neighborhood_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert neighborhood_attention.launches == before + 2
+    assert torch.equal(got, again)
+    want = neighborhood_attention_ref(q, k, v, mask)
+    # f32: sum order; bf16: one bf16 ulp of the output (2^-7 relative)
+    tol = (1e-5, 1e-5) if dtype == "float32" else (2 ** -6, 1e-5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol[0],
+                               atol=tol[1])
+    assert not got[~mask[:, 0]].any()
+
+
+@pytest.mark.cuda
+def test_segment_sum_kernel_at_tgat_boundary_on_card(cuda):
+    """K4 at TGAT's layer boundary at batch 4000: 132,000 instances of
+    width 100 into a tier cap of 66,048 rows (factor 0.5), the masked
+    instances (here 20,000) joining one rank at the end as the dedup puts
+    them."""
+    L, cap, D = 132_000, 66_048, 100
+    seg, dhs = _segments(L, cap, D, seed=9, tail=20_000)
+    seg, dhs = torch.from_numpy(seg).to(cuda), torch.from_numpy(dhs).to(cuda)
+    before = sorted_segment_sum.launches
+    got = sorted_segment_sum(dhs, seg, cap)
+    again = sorted_segment_sum(dhs, seg, cap)
+    torch.cuda.synchronize()
+    assert sorted_segment_sum.launches == before + 2
+    assert torch.equal(got, again)           # no atomics
+    want = sorted_segment_sum_ref(dhs.double(), seg, cap)
+    err = (got.double() - want).abs()
+    assert (err.max() / want.abs().max()).item() <= 1e-5
+    abs_sum = sorted_segment_sum_ref(dhs.abs().double(), seg, cap)
+    assert (err / abs_sum.clamp_min(1e-300)).max().item() <= 1e-5
+    assert not got[cap - 7:].any()

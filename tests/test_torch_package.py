@@ -16,6 +16,7 @@ from gnnflow_tpu.utils import metrics as jmetrics
 from gnnflow_tpu_torch import config, data
 from gnnflow_tpu_torch.dynamic_graph import DynamicGraph
 from gnnflow_tpu_torch.utils import metrics
+from tests.test_torch_kernels import one_cpu_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "gnnflow_tpu_torch")

@@ -12,6 +12,7 @@ from gnnflow_tpu.dynamic_graph import DynamicGraph as JGraph
 from gnnflow_tpu.ops import sampling as jsampling
 from gnnflow_tpu_torch.dynamic_graph import DynamicGraph
 from gnnflow_tpu_torch.ops import sampling
+from tests.test_torch_kernels import one_cpu_thread  # noqa: F401
 
 FIELDS = ("root_nids", "root_ts", "nbr_nids", "nbr_ts", "nbr_dts",
           "nbr_eids", "nbr_mask")
@@ -76,7 +77,7 @@ def test_sample_hops_one_layer(graphs, fanout):
     roots, ts = _roots(hub_edge_ts)
     dg, jdg = ours.device_graph("cpu"), ref.device_graph()
     got = sampling.sample_hops(dg, torch.from_numpy(roots),
-                               torch.from_numpy(ts), fanout=fanout)
+                               torch.from_numpy(ts), fanouts=[fanout])
     want = jsampling.sample_hops(jdg, jnp.asarray(roots, jnp.int32),
                                  jnp.asarray(ts), fanouts=[fanout],
                                  search_iters=jdg.search_iters)

@@ -23,6 +23,7 @@ from gnnflow_tpu_torch.models.dgnn import DGNN
 from gnnflow_tpu_torch.models.weights import load_flax_params
 from gnnflow_tpu_torch.ops.segment import unique_keep_last_mask
 from gnnflow_tpu_torch.train import Trainer
+from tests.test_torch_kernels import one_cpu_thread  # noqa: F401
 
 CFG = dict(dim_node=0, dim_edge=6, dim_time=8, dim_embed=8, num_layers=1,
            num_snapshots=1, att_head=2, dropout=0.2, att_dropout=0.2,
@@ -112,7 +113,7 @@ def test_weight_loader_rejects_other_trees():
 
 @pytest.mark.parametrize("kw", [dict(num_snapshots=3),
                                 dict(memory_updater="transformer"),
-                                dict(use_memory=False),
+                                dict(use_memory=False, dim_time=0),
                                 dict(num_layers=2)])
 def test_unported_configs_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -108,7 +108,7 @@ def test_first_step_gradients_match_jax(interpret_attention):
     jloss, *_, jgrads = run(jstate, jmfgs, jefs, jax.random.PRNGKey(2),
                             jvalid_mask(jb), True, jmem, jnfs)
 
-    mfgs, efs, mem_input, _, valid = trainer._inputs(state, dg, tef, b)
+    mfgs, efs, mem_input, _, valid, _ = trainer._inputs(state, dg, tef, b)
     pos, neg, _ = trainer.model(mfgs, efs, mem_input, train=True,
                                 generator=state.dropout_gen)
     loss = link_pred_loss(pos, neg, valid)
@@ -208,7 +208,7 @@ def test_dropout_keeps_share_and_scales(dtype):
 def test_training_with_dropout_needs_a_generator():
     _, _, _, full, _, ef = _stream()
     trainer, state, dg = _port_side(full, None, {**CFG, "dropout": 0.2})
-    mfgs, efs, mem_input, _, _ = trainer._inputs(
+    mfgs, efs, mem_input, _, _, _ = trainer._inputs(
         state, dg, torch.from_numpy(ef), next(_batches(full)[0]))
     with pytest.raises(ValueError, match="generator"):
         trainer.model(mfgs, efs, mem_input, train=True)
