@@ -47,7 +47,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
    on both sides too, and the card's dedup run is held against its
    per-instance run.  TGAT in f32 as well (the widths of phase 9, dropout
    0, the same uniform draws on both sides): eval logits, then train
-   steps on a two-tier layer-dedup ladder.
+   steps on a two-tier layer-dedup ladder; and DySAT the same way (the
+   widths of phase 10), train steps on a two-tier snapshot-dedup ladder.
 9. tgat: TGAT as ``bench.py:127-160`` runs it (REDDIT defaults through
    ``build_model``: 2 layers, fanouts [10, 10], uniform sampling, no
    memory, dropout and attention dropout 0.1, bf16 compute, 172-dim edge
@@ -61,6 +62,20 @@ Phases (each prints one line; any failure raises and exits non-zero):
    device time; then K3 at the inner layer's 132,000 rows and K4 at the
    layer boundary against their plain versions, with the tolerances of
    phase 3.
+10. dysat: DySAT as ``bench.py:127-160`` runs it (REDDIT defaults through
+   ``build_model``: 2 layers, fanouts [10, 10], uniform sampling, 3
+   snapshots of window 10000 with prop_time, no time encoding, no memory,
+   dropout and attention dropout 0.1, bf16 compute, 172-dim edge
+   features, batch 4000) on the same stream: 10 eval batches on the
+   padded path (K3 six times a batch), 20 train steps with the default
+   trainer (the first calibrates the block compaction and the
+   snapshot-dedup ladder; K3 never, K4 three times a step on the snapshot
+   dedup), 5 steps at attention dropout 0 on the snapshot dedup at factor
+   0.5 (K3 and its backward six times a step), 5 on the block compaction
+   alone at factor 0.9 (K4 never), 5 at factor 0.01 (all fall back, K4
+   never), one epoch of the entry script; then K3 at the inner layer's
+   padded, block-compact and deduplicated shapes and K4 at the snapshot
+   boundary against their plain versions.
 
 Then one JSON line with every kernel's numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.
@@ -120,32 +135,50 @@ def cuda_ms_cold(torch, fns, iters: int = 24) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fns, iters: int = 24) -> float:
+# timings that the profiler could not take: one entry for each call of
+# ``device_ms`` that met an empty profiling session, printed at the end
+PROFILER_EMPTY = []
+
+
+def device_ms(torch, fns, iters: int = 24, sessions: int = 3,
+              tries: int = 8) -> float:
     """Mean device time of one call: the summed device time of every
     kernel the calls launch (``torch.profiler``), over ``iters`` calls
-    rotating over ``fns`` after one round of warm-up; the median of three
-    profiling sessions, since a session has now and then come back empty
-    or short of records.  Where the host takes longer to prepare a call
-    than the device to run it, CUDA events around back-to-back calls time
-    the host; this does not."""
+    rotating over ``fns`` after one round of warm-up; the median of
+    ``sessions`` profiling sessions that recorded device time, out of at
+    most ``tries``, since a session now and then comes back empty or short
+    of records.  Where the host takes longer to prepare a call than the
+    device to run it, CUDA events around back-to-back calls time the host;
+    this does not.  If no session records device time, the time is taken
+    with CUDA events instead (``cuda_ms_cold``), and ``PROFILER_EMPTY``
+    says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for fn in fns:
         fn()
     torch.cuda.synchronize()
-    totals = []
-    for _ in range(3):
+    totals, empty = [], 0
+    for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for i in range(iters):
                 fns[i % len(fns)]()
             torch.cuda.synchronize()
-        totals.append(sum(e.self_device_time_total
-                          for e in prof.key_averages()
-                          if e.device_type == DeviceType.CUDA))
-    total = statistics.median(totals)
-    if total <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    return total / 1e3 / iters
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        if total > 0:
+            totals.append(total)
+        else:
+            empty += 1
+        if len(totals) == sessions:
+            break
+    if empty:
+        PROFILER_EMPTY.append(dict(
+            empty_sessions=empty, recorded_sessions=len(totals),
+            timed_by="profiler" if totals else "cuda events"))
+        _log("timing", **PROFILER_EMPTY[-1])
+    if not totals:
+        return cuda_ms_cold(torch, fns, iters)
+    return statistics.median(totals) / 1e3 / iters
 
 
 TIMING_NOTE = ("ms, plain_ms and library_ms: device time from the profiler "
@@ -1185,7 +1218,7 @@ def phase_tgat(torch, kernels, stream):
     shifts = [np.float32(0.0)] + [np.float32(q * t_hi - t_b)
                                   for q in (0.33, 0.67, 1.0)]
     tr["calibration_probe_first_boundary_uniq_fracs"] = [
-        trainer._probe(dg, tb[0].target_nodes, tb[0].ts + d)[1][0]
+        trainer._probe(dg, tb[0].target_nodes, tb[0].ts + d)[2][0]
         for d in shifts]
     _log("tgat", path="train", **tr)
     # K3's shapes: a padded sample of a batch in the middle of the
@@ -1285,6 +1318,308 @@ def phase_tgat(torch, kernels, stream):
                 layer_dedup=ld, fallback=fb)
 
 
+def _dysat(att_dropout=None, device="cuda", **knobs):
+    """DySAT as bench.py:127-160 builds it: the REDDIT defaults of the
+    config registry (2 layers, fanouts [10, 10], uniform sampling, 3
+    snapshots of window 10000 with prop_time, no time encoding, dropout
+    and attention dropout 0.1, 2 heads, embedding dim 100, no memory) in
+    bf16 compute over f32 parameters, no node input, 172-dim edge
+    features, seeded random weights, through ``build_model`` and the
+    trainer arguments it returns; ``knobs`` set the trainer's fast
+    paths."""
+    from gnnflow_tpu_torch.config import get_default_config
+    from gnnflow_tpu_torch.models.factory import build_model
+    from gnnflow_tpu_torch.train import Trainer
+    mc, _ = get_default_config("DySAT", "REDDIT")
+    mc["compute_dtype"] = "bfloat16"
+    if att_dropout is not None:
+        mc["att_dropout"] = att_dropout
+    model, kw = build_model("DySAT", mc, 0, 172, seed=0, device=device)
+    return model, Trainer(model, lr=1e-4, device=device, **kw, **knobs)
+
+
+def phase_dysat(torch, kernels, stream):
+    """DySAT (``_dysat``) on the REDDIT-shaped stream at batch 4000: eval
+    batches on the padded path (K3 six times a batch); train steps with
+    the default trainer (the first calibrates the block compaction and
+    the snapshot-dedup ladder; K3 never runs at attention dropout 0.1, K4
+    three times a step on the snapshot dedup, once per snapshot); steps at
+    attention dropout 0 on the snapshot dedup at factor 0.5 (K3 and its
+    backward six times a step); steps on the block compaction alone at a
+    fixed factor (K4 never); steps at factor 0.01, which fall back (K4
+    never); one epoch of the entry script; then K3 at the inner layer's
+    padded, block-compact and deduplicated shapes and K4 at the snapshot
+    boundary against their plain versions.  Returns the launch counts of
+    each path and the kernels' rows."""
+    import numpy as np
+    from gnnflow_tpu_torch.ops import _build
+    from gnnflow_tpu_torch.ops.attention_fused import \
+        neighborhood_attention_autograd as attention_autograd
+    from gnnflow_tpu_torch.ops.dedup import dedup_instances
+    from gnnflow_tpu_torch.ops.sampling import (sample_deeper_compact,
+                                                sample_layer)
+    from gnnflow_tpu_torch.scripts import offline_edge_prediction as entry
+    from gnnflow_tpu_torch.train import tier_caps
+    from gnnflow_tpu_torch.utils import (average_precision_score,
+                                         roc_auc_score)
+    g, dg, ef, train, full = stream["g"], stream["dg"], stream["ef"], \
+        stream["train"], stream["full"]
+    num_nodes = g.max_vertex_id() + 1
+    B, S, warm, ev_runs, steps, extra = 4000, 3, 3, 10, 20, 5
+    padded = dict(compact_factor=None, model_compact=False, layer_dedup=None)
+    launches = {}
+
+    def counts():
+        return {name: fn.launches for name, fn in kernels.items()}
+
+    def expect(k3=0, k4=0):
+        return {"gru_memory_fused": 0, "gru_memory_fused_bwd": 0,
+                "neighborhood_attention": k3, "sorted_segment_sum": k4}
+
+    # ---- eval, padded ---------------------------------------------------
+    model, trainer = _dysat(**padded)
+    state = trainer.init_state(num_nodes, seed=0)
+    ev_batches = _take(full, B, full.dst, warm + ev_runs)
+    for b in ev_batches[:warm]:
+        trainer.eval_step(state, dg, ef, b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(kernels)
+    outs, dev_ms, host_ms = _timed_steps(
+        torch, lambda b: trainer.eval_step(state, dg, ef, b)[1:],
+        ev_batches[warm:])
+    launches["dysat_eval"] = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    pos = torch.cat([o[1][:b.num_valid] for o, b in
+                     zip(outs, ev_batches[warm:])]).float().cpu().numpy()
+    neg = torch.cat([o[2][:b.num_valid] for o, b in
+                     zip(outs, ev_batches[warm:])]).float().cpu().numpy()
+    losses = torch.stack([o[0] for o in outs]).cpu()
+    if not (bool(torch.isfinite(losses).all()) and np.isfinite(pos).all()
+            and np.isfinite(neg).all() and len(pos) == ev_runs * B):
+        raise AssertionError("DySAT eval: non-finite values or wrong shapes")
+    _check_launches(launches["dysat_eval"], expect(k3=2 * S * ev_runs),
+                    f"{ev_runs} DySAT eval batches")
+    y = np.concatenate([np.ones(len(pos)), np.zeros(len(neg))])
+    sc = np.concatenate([pos, neg])
+    ev = dict(batches=ev_runs, batch_size=B,
+              ms_per_batch=statistics.mean(dev_ms),
+              host_ms_per_batch=statistics.mean(host_ms),
+              edges_per_s=B / (statistics.mean(dev_ms) / 1e3),
+              ap=average_precision_score(y, sc), auc=roc_auc_score(y, sc),
+              mean_loss=float(losses.mean()),
+              max_memory_allocated_mib=peak,
+              launches=launches["dysat_eval"],
+              profile=_profile(torch,
+                               lambda b: trainer.eval_step(state, dg, ef, b),
+                               ev_batches[warm:warm + 3]))
+    _log("dysat", path="eval", **ev)
+    del model, trainer, state, outs
+
+    def stepper(trainer, state):
+        """A train step that returns its loss and what its fast paths
+        did: boundaries on the snapshot dedup, its unique counts, and
+        boundaries on the block compaction."""
+        def step(b):
+            loss = trainer.train_step(state, dg, ef, b)[1]
+            return (loss, state.layer_dedup_compact,
+                    state.layer_dedup_n_uniq, state.block_compact)
+        return step
+
+    def run_path(name, trainer, state, batches, k3_per_step, k4_per_dedup):
+        """Time ``batches`` train steps and check their launches: K3 and
+        its backward ``k3_per_step`` times a step, K4 ``k4_per_dedup``
+        times a boundary on the snapshot dedup.  Only the default
+        trainer calibrates (on its first step)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(kernels)
+        bwd0 = attention_autograd.backward_calls
+        outs, dev_ms, host_ms = _timed_steps(torch, stepper(trainer, state),
+                                             batches)
+        launches[name] = counts()
+        losses = torch.stack([o[0] for o in outs]).cpu()
+        dedup = [o[1] for o in outs]
+        blocks = [o[3] for o in outs]
+        if not (bool(torch.isfinite(losses).all())
+                and all(bool(torch.isfinite(p).all())
+                        for p in trainer.model.parameters())):
+            raise AssertionError(f"DySAT {name}: a non-finite value")
+        _check_launches(launches[name],
+                        expect(k3=k3_per_step * len(batches),
+                               k4=k4_per_dedup * sum(dedup)),
+                        f"{len(batches)} DySAT train steps ({name})")
+        att_bwd = attention_autograd.backward_calls - bwd0
+        if (trainer.calibration is not None) != (name == "dysat_train"):
+            raise AssertionError(f"DySAT {name}: calibration "
+                                 f"{trainer.calibration}")
+        if att_bwd != k3_per_step * len(batches):
+            raise AssertionError(f"K3's backward ran {att_bwd} times in "
+                                 f"{len(batches)} DySAT steps ({name})")
+        return outs, dev_ms, host_ms, dict(
+            steps=len(batches), dedup_steps=sum(1 for d in dedup if d),
+            block_compact_steps=sum(1 for c in blocks if c),
+            first_boundary_n_uniq_max=[o[2][0] if o[2] else None
+                                       for o in outs],
+            ms_per_step=statistics.mean(dev_ms),
+            host_ms_per_step=statistics.mean(host_ms),
+            attention_backward_calls=att_bwd, losses=losses.tolist(),
+            max_memory_allocated_mib=torch.cuda.max_memory_allocated()
+            / 2 ** 20, launches=launches[name])
+
+    # ---- train, default trainer: the first step calibrates ------------
+    tb = _take(train, B, train.dst, steps + 3)
+    model, trainer = _dysat()
+    state = trainer.init_state(num_nodes, seed=0)
+    outs, dev_ms, host_ms, tr = run_path("dysat_train", trainer, state,
+                                         tb[:steps], 0, S)
+    takes = trainer.tier_take_stats(state)
+    if takes["total"] != (steps if trainer.layer_dedup is not None else 0):
+        raise AssertionError(f"DySAT tier takes {takes} over {steps} steps")
+    prof = _profile(torch, lambda b: trainer.train_step(state, dg, ef, b),
+                    tb[steps:steps + 3])
+    tr.update(calibration=trainer.calibration, tier_takes=takes,
+              first_step_ms=dev_ms[0], first_step_host_ms=host_ms[0],
+              ms_per_step=statistics.mean(dev_ms[warm:]),
+              host_ms_per_step=statistics.mean(host_ms[warm:]),
+              edges_per_s=B / (statistics.mean(dev_ms[warm:]) / 1e3),
+              dedup_ms_per_step=_mean_or_none(
+                  [t for t, o in zip(dev_ms[1:], outs[1:]) if o[1]]),
+              padded_or_blocks_ms_per_step=_mean_or_none(
+                  [t for t, o in zip(dev_ms[1:], outs[1:]) if not o[1]]),
+              first_boundary_instances=3 * B * 11,
+              loss_first5=float(np.mean(tr["losses"][:5])),
+              loss_last5=float(np.mean(tr["losses"][-5:])), profile=prof)
+    del tr["losses"]
+    _log("dysat", path="train", **tr)
+    cal_compact = trainer.compact_factor
+    del model, trainer, state, outs
+
+    # ---- attention dropout 0 on the snapshot dedup at factor 0.5 ------
+    # (every knob set, so that the first step does not calibrate)
+    model, trainer = _dysat(att_dropout=0.0, layer_dedup=0.5,
+                            compact_factor=None)
+    state = trainer.init_state(num_nodes, seed=0)
+    *_, d0 = run_path("dysat_dedup_att_dropout0", trainer, state, tb[:extra],
+                      2 * S, S)
+    d0.update(factor=0.5)
+    if d0["dedup_steps"] < 1:
+        raise AssertionError(f"DySAT at factor 0.5: no step on the "
+                             f"snapshot dedup {d0}")
+    _log("dysat", path="snapshot_dedup_att_dropout0", **d0)
+    del model, trainer, state
+
+    # ---- the block compaction alone, at a fixed factor ------------------
+    # (its packed blocks must hold every snapshot's valid ones: most of
+    # the most recent snapshot's blocks are valid)
+    cf = 0.9
+    model, trainer = _dysat(compact_factor=cf, layer_dedup=None)
+    state = trainer.init_state(num_nodes, seed=0)
+    *_, bc = run_path("dysat_block_compaction", trainer, state, tb[:extra],
+                      0, S)
+    bc.update(factor=cf)
+    if bc["block_compact_steps"] < 1:
+        raise AssertionError(f"DySAT at compact factor {cf}: no step on "
+                             f"the block compaction {bc}")
+    _log("dysat", path="block_compaction", **bc)
+    del model, trainer, state
+
+    # ---- factor 0.01: the snapshot dedup falls back -------------------
+    model, trainer = _dysat(layer_dedup=0.01, compact_factor=None)
+    state = trainer.init_state(num_nodes, seed=0)
+    *_, fb = run_path("dysat_fallback", trainer, state, tb[:extra], 0, S)
+    fb.update(factor=0.01, tier_takes=trainer.tier_take_stats(state))
+    if fb["dedup_steps"] or fb["tier_takes"]["fallback_rate"] != 1.0:
+        raise AssertionError(f"DySAT at factor 0.01: {fb}")
+    _log("dysat", path="fallback", **fb)
+    del model, trainer, state
+
+    # ---- the entry script, one epoch ----------------------------------
+    _reset(kernels)
+    t0 = time.perf_counter()
+    out = entry.main(["--model", "DySAT", "--data", "SYNTHETIC", "--epoch",
+                      "1", "--synthetic-edges", "30000"],
+                     checkpoint_path=os.path.join(_build.BUILD_DIR,
+                                                  "DySAT_torch.ckpt"))
+    torch.cuda.synchronize()
+    launches["dysat_entry"] = counts()
+    aps = out["val_ap"] + [out["test_ap"]]
+    if not all(0.0 < a <= 1.0 for a in aps) \
+            or launches["dysat_entry"]["neighborhood_attention"] == 0:
+        raise AssertionError(f"DySAT entry: {out}, {launches['dysat_entry']}")
+    en = dict(seconds=time.perf_counter() - t0,
+              launches=launches["dysat_entry"], **out)
+    _log("dysat", path="entry", **en)
+
+    # ---- K3 at l0h*'s shapes, K4 at the snapshot boundary -------------
+    # a batch in the middle of the stream, sampled padded
+    model, trainer = _dysat(**padded)
+    mid = _take(full, B, full.dst, PROBE_BATCH)[-1]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    roots = torch.from_numpy(mid.target_nodes).cuda()
+    ts = torch.from_numpy(mid.ts).cuda()
+    mfgs = trainer._sample(gen, dg, roots, ts, compact=False)
+    outer, inner = mfgs[1], mfgs[0]
+    kw = dict(fanout=10, strategy="uniform", num_snapshots=S,
+              window=trainer.window, prop_time=True)
+    # the block compaction's packed roots at the tightest cap that fits
+    blocks = [int(m.nbr_mask.any(1).sum()) for m in outer]
+    cap_b = max(blocks)
+    inner_b, _ = sample_deeper_compact(
+        dg, outer, cap_b, u=torch.rand(S, 3 * B + cap_b * 10, 10,
+                                       generator=gen, device="cuda"), **kw)
+    # the snapshot dedup of the most recent snapshot, at the tightest
+    # 256-row cap that holds its unique pairs
+    o = outer[S - 1]
+    _, _, _, n_all, _, _ = dedup_instances(o.all_nodes(), o.all_ts(),
+                                           o.all_mask(), o.num_all)
+    (cap_d,) = tier_caps([int(n_all) / o.num_all], o.num_all)
+    uniq_nid, uniq_ts, _, n_uniq, _, seg = dedup_instances(
+        o.all_nodes(), o.all_ts(), o.all_mask(), cap_d)
+    slot = torch.arange(cap_d, device="cuda")
+    inner_d = sample_layer(
+        dg, torch.where(slot < n_uniq, uniq_nid, -1), uniq_ts,
+        snapshot_idx=S - 1, u=torch.rand(cap_d, 10, generator=gen,
+                                         device="cuda"), **kw)
+    del model, trainer
+    w = dict(device=torch.device("cuda"),
+             generator=torch.Generator(device="cuda").manual_seed(1))
+    k3 = {}
+    shapes = {"padded": inner[S - 1].nbr_mask,
+              "block_compact": inner_b[S - 1].nbr_mask,
+              "snapshot_dedup": inner_d.nbr_mask}
+    for at, mask in shapes.items():
+        dts = (("bfloat16", torch.bfloat16, 2 ** -6, 1e-5),) + (
+            (("float32", torch.float32, 1e-5, 1e-5),) if at == "padded"
+            else ())
+        for name, cdt, rtol, atol in dts:
+            k3[(at, name)] = _kernel_k3(torch, w, mask.contiguous(), cdt,
+                                        rtol, atol)
+            _log("kernels", kernel="neighborhood_attention", dtype=name,
+                 at=f"DySAT l0h{S - 1} {at}", shape=list(mask.shape)
+                 + [2, 50], **k3[(at, name)])
+    k4 = _k4_check(torch, w, seg, cap_d, int(n_uniq), 100)
+    _log("kernels", kernel="sorted_segment_sum", dtype="float32",
+         at="DySAT snapshot boundary", shape=[o.num_all, 100, cap_d], **k4)
+    rows = {"neighborhood_attention": dict(
+                layer=f"l0h{S - 1}", batch=PROBE_BATCH,
+                valid_fraction_by_snapshot=[
+                    float(m.nbr_mask.float().mean()) for m in inner],
+                valid_blocks_by_snapshot=blocks, block_cap=cap_b,
+                **{at: dict(shape=list(shapes[at].shape) + [2, 50],
+                            **{k: v for k, v in k3[(at, "bfloat16")].items()
+                               if k != "tol"})
+                   for at in shapes},
+                float32_padded=k3[("padded", "float32")]),
+            "sorted_segment_sum": dict(
+                shape=[o.num_all, 100], cap=cap_d, snapshot=S - 1,
+                batch=PROBE_BATCH,
+                **{k: v for k, v in k4.items() if k != "tol"})}
+    return dict(launches=launches, rows=rows, eval=ev, train=tr,
+                compact_factor=cal_compact, dedup_att_dropout0=d0,
+                block_compaction=bc, fallback=fb, entry=en)
+
+
 def _plain_attention_ms(torch, model, rec):
     """Device time of the plain attention with its dropout, forward and
     backward, on the inputs each layer last gave it (``rec``), replayed
@@ -1363,14 +1698,16 @@ def _rel(a, b) -> float:
 
 
 def _copy_train_state(src, dst) -> None:
-    """Copy run ``src``'s parameters, Adam moments and memory into run
-    ``dst`` (across devices) and remake ``dst``'s weight copies."""
+    """Copy run ``src``'s parameters, Adam moments and memory (if any)
+    into run ``dst`` (across devices) and remake ``dst``'s weight
+    copies."""
     for p_s, p_d in zip(src["model"].parameters(), dst["model"].parameters()):
         p_d.detach().copy_(p_s.detach())
         for k, v in src["st"].optimizer.state[p_s].items():
             dst["st"].optimizer.state[p_d][k].copy_(v)
-    for f in ("node_memory", "node_memory_ts", "mailbox", "mailbox_ts"):
-        getattr(dst["st"].memory, f).copy_(getattr(src["st"].memory, f))
+    if src["st"].memory is not None:
+        for f in ("node_memory", "node_memory_ts", "mailbox", "mailbox_ts"):
+            getattr(dst["st"].memory, f).copy_(getattr(src["st"].memory, f))
     dst["model"].cast_weights()
 
 
@@ -1566,6 +1903,8 @@ def phase_self_check(torch, card: str = "cuda"):
         out[cd] = dict(eval=ev, train=tr_out)
     out["tgat_float32"] = _self_check_tgat(torch, card, full, graphs, efs,
                                            num_nodes, failed)
+    out["dysat_float32"] = _self_check_dysat(torch, card, full, graphs, efs,
+                                             num_nodes, failed)
     _log("self_check", eval_batches=4, batch_size=500, **out)
     if failed:
         raise AssertionError(f"CPU vs card: {failed} beyond tolerance")
@@ -1663,6 +2002,130 @@ def _self_check_tgat(torch, card, full, graphs, efs, num_nodes, failed):
                            k4_launches=k4, finite=finite))
 
 
+def _self_check_dysat(torch, card, full, graphs, efs, num_nodes, failed):
+    """DySAT in f32 (widths of ``_dysat``, dropout 0, 3 snapshots of
+    window 2000 on this 24,000-long stream), CPU (plain versions) against
+    card (kernels), on the same uniform draws: eval logits over 4 padded
+    batches, then 4 train steps on the snapshot dedup's two-tier ladder
+    (loss, gradients, parameters after each step), with the same tiers
+    taken on both sides and K4 launched once per snapshot of each step on
+    the card's dedup.
+
+    Before each train step the card takes the CPU's parameters and Adam
+    moments, so every step is held from one state; a free card run is
+    reported beside the held one.  Gradients are held to 1e-2 of each
+    parameter's largest gradient element, not 1e-4 as TGAT's: on this
+    stream's early, sparsely filled snapshot windows a few rows carry an
+    inner layer's gradient, and a ReLU input within ~1e-7 of zero takes
+    the other side under any f32 reordering, which moves one row's share
+    of a weight gradient.  The CPU shows it alone: a CPU run from the
+    CPU's state with every parameter scaled by ``1 + 1e-7·N(0, 1)`` is
+    reported beside.  Losses (1e-4) and parameters after each step (1e-5,
+    a tenth of an Adam step) keep TGAT's tolerances."""
+    from gnnflow_tpu_torch.data import DstRandEdgeSampler, get_batches
+    from gnnflow_tpu_torch.models.dgnn import DGNN
+    from gnnflow_tpu_torch.ops.segment_sum import sorted_segment_sum
+    from gnnflow_tpu_torch.train import Trainer
+    cfg = dict(dim_node=0, dim_edge=172, dim_time=0, dim_embed=100,
+               num_layers=2, num_snapshots=3, att_head=2, dropout=0.0,
+               att_dropout=0.0, use_memory=False)
+    tol = 1e-4
+    tt = dict(loss=1e-4, grad=1e-2, param=1e-5)
+    ladder = (0.3, 0.6)
+
+    def run(device, layer_dedup):
+        model = DGNN(**cfg, seed=1, device=device)
+        tr = Trainer(model, fanouts=[10, 10], sample_strategy="uniform",
+                     num_snapshots=3, snapshot_time_window=2000.0,
+                     prop_time=True, lr=1e-4, compact_factor=None,
+                     model_compact=False, layer_dedup=layer_dedup,
+                     device=device)
+        _cpu_draws(torch, tr, 5)
+        return dict(model=model, tr=tr, st=tr.init_state(num_nodes),
+                    device=device, trace=[], compact=[])
+
+    ev = {}
+    for device in ("cpu", card):
+        r = run(device, None)
+        logits = []
+        neg = DstRandEdgeSampler(full.dst, seed=3)
+        for i, b in enumerate(get_batches(full, 500, neg)):
+            if i == 4:
+                break
+            _, _, p, n = r["tr"].eval_step(r["st"], graphs[device],
+                                           efs[device], b)
+            logits.append(torch.cat([p, n]).float().cpu())
+        ev[device] = logits
+    err_l = max((a - b).abs().max().item()
+                for a, b in zip(ev["cpu"], ev[card]))
+    if not err_l <= tol:
+        failed.append("dysat eval float32")
+
+    names = ("cpu", "cpu_perturbed", "card", "card_free")
+    runs = {nm: run("cpu" if nm.startswith("cpu") else card, ladder)
+            for nm in names}
+    neg = DstRandEdgeSampler(full.dst, seed=4)
+    noise = torch.Generator().manual_seed(6)
+    k4_before = sorted_segment_sum.launches
+    steps = 4
+    for i, b in enumerate(get_batches(full, 500, neg)):
+        if i == steps:
+            break
+        _copy_train_state(runs["cpu"], runs["card"])
+        _copy_train_state(runs["cpu"], runs["cpu_perturbed"])
+        with torch.no_grad():
+            for q in runs["cpu_perturbed"]["model"].parameters():
+                q.mul_(1 + 1e-7 * torch.randn(q.shape, generator=noise))
+        runs["cpu_perturbed"]["model"].cast_weights()
+        for nm in names:
+            r = runs[nm]
+            _, loss, _, _ = r["tr"].train_step(
+                r["st"], graphs[r["device"]], efs[r["device"]], b)
+            r["compact"].append(r["st"].layer_dedup_compact)
+            r["trace"].append(dict(
+                loss=loss.float().cpu(),
+                grad=[q.grad.float().cpu() for q in r["model"].parameters()],
+                param=[q.detach().cpu().clone()
+                       for q in r["model"].parameters()],
+                memory=torch.zeros(1)))
+    k4 = sorted_segment_sum.launches - k4_before
+    pnames = [nm for nm, _ in runs["cpu"]["model"].named_parameters()]
+    errs, worst = _trace_errs(runs["cpu"]["trace"], runs["card"]["trace"],
+                              pnames)
+    free, free_worst = _trace_errs(runs["cpu"]["trace"],
+                                   runs["card_free"]["trace"], pnames)
+    pert, pert_worst = _trace_errs(runs["cpu"]["trace"],
+                                   runs["cpu_perturbed"]["trace"], pnames)
+    finite = all(bool(torch.isfinite(x).all())
+                 for s_ in runs["card"]["trace"]
+                 for x in s_["grad"] + s_["param"])
+    compact = runs["card"]["compact"]
+    # K4: once per snapshot of each step on the dedup, in both card runs
+    ok = (all(max(errs[k]) <= tt[k] for k in tt) and finite
+          and compact == runs["cpu"]["compact"] and sum(compact) >= 1
+          and k4 == (3 * (sum(compact) + sum(runs["card_free"]["compact"]))
+                     if card != "cpu" else 0))
+    if not ok:
+        failed.append("dysat train snapshot dedup float32")
+    return dict(eval=dict(batches=4, logits_max_abs_err=err_l, tol=tol),
+                train=dict(steps=steps, ladder=list(ladder),
+                           per_step_max_err={k: errs[k] for k in tt},
+                           worst_grad_parameter=worst, tol=tt,
+                           compact_steps=compact,
+                           cpu_compact_steps=runs["cpu"]["compact"],
+                           first_boundary_n_uniq_max=runs["card"]["st"]
+                           .layer_dedup_n_uniq,
+                           tier_takes=runs["card"]["st"].tier_takes,
+                           k4_launches=k4, finite=finite,
+                           state_synced_before_each_step=True,
+                           reported_free_card_vs_cpu=dict(
+                               per_step_max_err={k: free[k] for k in tt},
+                               worst_grad_parameter=free_worst),
+                           reported_cpu_perturbed_1e_7_vs_cpu=dict(
+                               per_step_max_err={k: pert[k] for k in tt},
+                               worst_grad_parameter=pert_worst)))
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -1685,23 +2148,29 @@ def main() -> int:
     en = phase_entry(torch, kernels)
     phase_self_check(torch)
     tg = phase_tgat(torch, kernels, stream)
+    dy = phase_dysat(torch, kernels, stream)
     # launches on each main path, counted from 0 just before it: TGN eval
     # batches, train steps at att_dropout 0.2 and at 0, dedup train steps,
     # fallback steps and eval batches, the entry script's two epochs; TGAT
     # eval batches, default train steps, steps at att_dropout 0 and factor
-    # 0.5, steps at factor 0.01
+    # 0.5, steps at factor 0.01; DySAT eval batches, default train steps,
+    # steps at att_dropout 0 on the snapshot dedup, on the block
+    # compaction, at factor 0.01, the entry script's epoch
     paths = {"eval": sl["launches"], "train": tr["launches"],
              "train_att_dropout0": tr["att_dropout0"]["launches"],
              "dedup_train": dd["launches"],
              "dedup_fallback": dd["fallback"]["launches"],
              "dedup_eval": dd["eval"]["launches"], "entry": en["launches"],
-             **tg["launches"]}
+             **tg["launches"], **dy["launches"]}
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())
         if row["name"] in tg["rows"]:
             row["tgat"] = tg["rows"][row["name"]]
-    print(json.dumps({"kernels": rows, "card": dev["smi"]}), flush=True)
+        if row["name"] in dy["rows"]:
+            row["dysat"] = dy["rows"][row["name"]]
+    print(json.dumps({"kernels": rows, "card": dev["smi"],
+                      "profiler_empty": PROFILER_EMPTY}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

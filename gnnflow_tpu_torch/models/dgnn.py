@@ -1,13 +1,16 @@
-"""DGNN for the TGN and TGAT configurations.
+"""DGNN for the TGN, TGAT and DySAT configurations.
 
-Counterpart of ``gnnflow_tpu/models/dgnn.py:45-202`` restricted to what
-TGN and TGAT run: one snapshot, an optional GRU memory updater (TGN), a
-stack of temporal attention layers ``l{l}h0`` and the edge predictor, for
-inference and training.  Between layers a ``("rows", inv, sidx,
-rank_sorted)`` expansion (the trainer's layer dedup) expands a compact
-layer's output back to the next layer's instances
-(``dgnn.py:166-179``).  Other configurations raise
-``NotImplementedError`` naming the ROADMAP.md item that brings them.
+Counterpart of ``gnnflow_tpu/models/dgnn.py:31-202`` restricted to what
+these three run: an optional GRU memory updater (TGN, one snapshot), a
+``num_layers x num_snapshots`` grid of temporal attention layers
+``l{l}h{h}``, the snapshot combiner (DySAT: an RNN over the snapshots'
+embeddings) and the edge predictor, for inference and training.  Between
+layers an expansion spec expands a compact layer's output back to the
+next layer's instances (``dgnn.py:166-183``): ``("rows", inv, sidx,
+rank_sorted)`` from the layer and snapshot dedups, or ``("blocks", rank,
+cap, fanout)`` from the block compaction of windowed snapshots.  Other
+configurations raise ``NotImplementedError`` naming the ROADMAP.md item
+that brings them.
 """
 from __future__ import annotations
 
@@ -18,14 +21,28 @@ from torch import nn
 
 from gnnflow_tpu_torch.common import MFG, resolve_device
 from gnnflow_tpu_torch.models.memory import GRUMemoryUpdater
-from gnnflow_tpu_torch.models.modules import (EdgePredictor,
+from gnnflow_tpu_torch.models.modules import (EdgePredictor, Linear,
                                               TemporalAttentionLayer)
-from gnnflow_tpu_torch.ops.segment_sum import expand_compact
+from gnnflow_tpu_torch.ops.segment_sum import expand_blocks, expand_rows_spec
+
+
+class SimpleRNNCell(nn.Module):
+    """The DySAT snapshot combiner (``dgnn.py:31-43``): a tanh RNN cell,
+    ``tanh(ih(x) + hh(h))``, with f32 :class:`Linear` layers."""
+
+    def __init__(self, features: int, gen: torch.Generator):
+        super().__init__()
+        self.ih = Linear(features, features, gen)
+        self.hh = Linear(features, features, gen)
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self.ih(x) + self.hh(h))
 
 
 class DGNN(nn.Module):
     """Dynamic GNN over padded MFGs (TGN: memory and one attention layer;
-    TGAT: attention layers without memory or node input).
+    TGAT: attention layers without memory or node input; DySAT: the same
+    over S snapshots, without time encoding, and the combiner).
 
     Weights are drawn from ``torch.Generator().manual_seed(seed)`` on the
     CPU (so every device gets the same weights) and moved to ``device``.
@@ -41,8 +58,10 @@ class DGNN(nn.Module):
                  compute_dtype: Optional[str] = None, seed: int = 0,
                  device="cuda"):
         super().__init__()
+        if use_memory and num_snapshots != 1:
+            raise ValueError("memory is not supported for multiple "
+                             "snapshots (dgnn.py:72-74)")
         unsupported = {
-            "num_snapshots > 1": (num_snapshots != 1, "modules to port, item 8"),
             "memory with more than one layer":
                 (use_memory and num_layers != 1, "modules to port, item 5"),
             "the transformer memory updater (APAN)":
@@ -57,8 +76,9 @@ class DGNN(nn.Module):
                     f"{what} is not ported yet (ROADMAP.md, {item})")
         if use_memory and dim_memory is None:
             raise ValueError("a model with memory needs dim_memory")
-        if num_layers < 1:
-            raise ValueError("num_layers must be at least 1")
+        if num_layers < 1 or num_snapshots < 1:
+            raise ValueError("num_layers and num_snapshots must be at "
+                             "least 1")
         if not (0.0 <= dropout < 1.0 and 0.0 <= att_dropout < 1.0):
             raise ValueError("dropout rates must lie in [0, 1)")
         dev = resolve_device(device)
@@ -66,7 +86,7 @@ class DGNN(nn.Module):
         self.dim_node, self.dim_edge = dim_node, dim_edge
         self.use_memory = use_memory
         self.dim_memory = dim_memory if use_memory else None
-        self.num_layers = num_layers
+        self.num_layers, self.num_snapshots = num_layers, num_snapshots
         self.compute_dtype = compute_dtype
         self.dropout, self.att_dropout = dropout, att_dropout
         gen = torch.Generator().manual_seed(seed)
@@ -74,10 +94,12 @@ class DGNN(nn.Module):
             self.updater = GRUMemoryUpdater(dim_edge, dim_time, dim_memory,
                                             gen, cd)
         dim_in = dim_memory if use_memory else dim_node
-        self.layers = nn.ModuleDict({f"l{l}h0": TemporalAttentionLayer(
+        self.layers = nn.ModuleDict({f"l{l}h{h}": TemporalAttentionLayer(
             dim_in if l == 0 else dim_embed, dim_edge, dim_time, dim_embed,
             att_head, gen, cd, dropout, att_dropout)
-            for l in range(num_layers)})
+            for l in range(num_layers) for h in range(num_snapshots)})
+        if num_snapshots > 1:
+            self.combiner = SimpleRNNCell(dim_embed, gen)
         self.edge_predictor = EdgePredictor(dim_embed, gen)
         self.to(dev)
         self.cast_weights()
@@ -97,34 +119,55 @@ class DGNN(nn.Module):
                 expansions=None):
         """Returns ``(pos_logits, neg_logits, last_updated)``.
 
-        ``mfgs[l][0]`` is layer ``l``'s MFG, innermost (deepest) first;
-        ``edge_feats[l][0]`` its [B, F, dim_edge] edge features;
-        ``mem_input`` the pulled memory rows of the innermost MFG's nodes
+        ``mfgs[l][h]`` is layer ``l``'s MFG in snapshot ``h``, innermost
+        (deepest) layer first; ``edge_feats[l][h]`` its [B, F, dim_edge]
+        edge features; ``mem_input`` the pulled memory rows of the
+        innermost MFG's nodes
         (:func:`~gnnflow_tpu_torch.models.memory.prepare_input`; None
-        without memory).  ``expansions[l]``, where given and not None, is
-        a ``("rows", inv, sidx, rank_sorted)`` spec that expands layer
-        ``l``'s compact output to layer ``l + 1``'s instances.
-        ``train=True`` applies dropout, drawn from ``generator`` (on the
-        model's device); ``last_updated`` is detached, and None without
-        memory.
+        without memory).  ``expansions[l]``, where given and not None,
+        expands layer ``l``'s compact output to layer ``l + 1``'s
+        instances: a ``("rows", inv, sidx, rank_sorted)`` spec (stacked
+        [S, L] per snapshot, or one) or a ``("blocks", rank [S, B], cap,
+        fanout)`` spec.  ``train=True`` applies dropout, drawn from
+        ``generator`` (on the model's device); ``last_updated`` is
+        detached, and None without memory.
         """
         if train and (self.dropout > 0 or self.att_dropout > 0) \
                 and generator is None:
             raise ValueError("training with dropout needs a generator")
         if expansions is not None and any(
-                spec is not None and spec[0] != "rows"
+                spec is not None and spec[0] not in ("rows", "blocks")
                 for spec in expansions):
-            raise NotImplementedError(
-                "block expansions come with the DySAT slice (ROADMAP.md, "
-                "modules to port, item 8)")
-        h, last_updated = None, None
+            raise ValueError("an expansion spec is ('rows', ...) or "
+                             "('blocks', ...)")
+        S = self.num_snapshots
+        last_updated = None
+        h_in: List[Optional[torch.Tensor]] = [None] * S
         if self.use_memory:
-            h, last_updated = self.updater(mfgs[0][0], mem_input)
+            h0, last_updated = self.updater(mfgs[0][0], mem_input)
+            h_in = [h0]
+        out = []
         for l in range(self.num_layers):
-            h = self.layers[f"l{l}h0"](mfgs[l][0], h, edge_feats[l][0],
-                                       train, generator)
             spec = expansions[l] if expansions is not None else None
-            if spec is not None and l < self.num_layers - 1:
-                h = expand_compact(h, *spec[1:])
-        pos, neg = self.edge_predictor(h)
+            next_h = []
+            for h in range(S):
+                rst = self.layers[f"l{l}h{h}"](mfgs[l][h], h_in[h],
+                                               edge_feats[l][h], train,
+                                               generator)
+                if l == self.num_layers - 1:
+                    out.append(rst)
+                    continue
+                if spec is not None and spec[0] == "rows":
+                    rst = expand_rows_spec(rst, spec, h)
+                elif spec is not None:
+                    _, rank, cap, fanout = spec
+                    rst = expand_blocks(rst, rank[h], cap, fanout)
+                next_h.append(rst)
+            h_in = next_h
+        embed = out[0]
+        if S > 1:                    # the RNN over the snapshot axis
+            embed = torch.zeros_like(out[0])
+            for x in out:
+                embed = self.combiner(embed, x)
+        pos, neg = self.edge_predictor(embed)
         return pos, neg, last_updated

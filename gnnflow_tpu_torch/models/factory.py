@@ -1,17 +1,17 @@
 """Model factory: a model and the trainer's sampling arguments from a
 config-registry entry.
 
-Counterpart of ``gnnflow_tpu/models/factory.py:build_model`` for TGN and
-TGAT.  The other registry models raise ``NotImplementedError`` naming the
-ROADMAP.md item that brings them, and so do configs whose sampling the
-port's trainer does not take.
+Counterpart of ``gnnflow_tpu/models/factory.py:build_model`` for TGN,
+TGAT and DySAT.  The other registry models raise ``NotImplementedError``
+naming the ROADMAP.md item that brings them, and so do configs the port
+does not take yet (static sampling, more than one negative per edge).
 """
 from __future__ import annotations
 
 from gnnflow_tpu_torch.models.dgnn import DGNN
 
 # registry models still to port -> their ROADMAP.md item
-UNPORTED_MODELS = {"dysat": "item 8", "apan": "item 9",
+UNPORTED_MODELS = {"apan": "item 9",
                    "graphsage": "item 10", "gat": "item 10"}
 
 
@@ -24,15 +24,12 @@ def build_model(name: str, model_config: dict, dim_node: int, dim_edge: int,
         raise NotImplementedError(
             f"{name} is not ported yet (ROADMAP.md, modules to port, "
             f"{UNPORTED_MODELS[name]})")
-    if name not in ("tgn", "tgat"):
+    if name not in ("tgn", "tgat", "dysat"):
         raise ValueError(f"unknown model {name!r}")
     cfg = dict(model_config)
-    sampling = {"num_snapshots": (1, "item 8"),
-                "snapshot_time_window": (0, "item 8"),
-                "prop_time": (False, "item 8"),
-                "is_static": (False, "item 10"),
+    unported = {"is_static": (False, "item 10"),
                 "neg_sample_ratio": (1, "item 5")}
-    for key, (ported, item) in sampling.items():
+    for key, (ported, item) in unported.items():
         if cfg.get(key, ported) != ported:
             raise NotImplementedError(
                 f"{key}={cfg[key]!r} is not ported yet (ROADMAP.md, modules "
@@ -51,4 +48,7 @@ def build_model(name: str, model_config: dict, dim_node: int, dim_edge: int,
                  compute_dtype=cfg.get("compute_dtype"), seed=seed,
                  device=device)
     return model, {"fanouts": cfg["fanouts"],
-                   "sample_strategy": cfg.get("sample_strategy", "recent")}
+                   "sample_strategy": cfg.get("sample_strategy", "recent"),
+                   "num_snapshots": cfg.get("num_snapshots", 1),
+                   "snapshot_time_window": cfg.get("snapshot_time_window", 0),
+                   "prop_time": cfg.get("prop_time", False)}

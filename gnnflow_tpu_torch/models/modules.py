@@ -189,26 +189,28 @@ class TemporalAttentionLayer(nn.Module):
     ``modules.py:341-345, 441``) ``h_dst`` is [B, 0]: Q comes from TE(0)
     alone, so every Q row is the same (a contiguous [B, D] product, not a
     broadcast), K/V from ``[edge feat | TE(dt)]``, and ``w_out`` reads
-    ``[agg]``."""
+    ``[agg]``.  Without time encoding (``dim_time == 0``, DySAT,
+    ``modules.py:336-365``) there is no ``TimeEncode``: Q is ``w_q([h_dst])``,
+    or with no node input either a [B, D] block of ones in the compute
+    dtype with no ``w_q`` at all; K/V come from ``[h_src | edge feat]``."""
 
     def __init__(self, dim_node: int, dim_edge: int, dim_time: int,
                  dim_out: int, num_head: int, gen: torch.Generator,
                  compute_dtype: Optional[torch.dtype] = None,
                  dropout: float = 0.0, att_dropout: float = 0.0):
         super().__init__()
-        if dim_time <= 0:
-            raise NotImplementedError(
-                "attention without time encoding comes with the DySAT "
-                "slice (ROADMAP.md, modules to port, item 8)")
         if dim_out % num_head:
             raise ValueError("dim_out must be a multiple of num_head")
-        self.dim_node = dim_node
+        self.dim_node, self.dim_time = dim_node, dim_time
         self.dim_out = dim_out
         self.num_head = num_head
+        self.compute_dtype = compute_dtype
         self.dropout, self.att_dropout = dropout, att_dropout
-        self.time_enc = TimeEncode(dim_time)
-        self.w_q = MultiLinear(dim_node + dim_time, dim_out, gen,
-                               compute_dtype)
+        if dim_time > 0:
+            self.time_enc = TimeEncode(dim_time)
+        if dim_node + dim_time > 0:
+            self.w_q = MultiLinear(dim_node + dim_time, dim_out, gen,
+                                   compute_dtype)
         self.w_kv = MultiLinear(dim_node + dim_edge + dim_time, 2 * dim_out,
                                 gen, compute_dtype)
         self.w_out = MultiLinear(dim_out + dim_node, dim_out, gen,
@@ -230,9 +232,16 @@ class TemporalAttentionLayer(nn.Module):
             h_src = torch.zeros((B, F, 0), device=dev)
         ef = edge_feats if edge_feats is not None \
             else h_src.new_zeros((B, F, 0))
-        tf = self.time_enc(mfg.nbr_dts)
-        ztf = self.time_enc(torch.zeros(B, device=dev))
-        q = self.w_q([h_dst, ztf])
+        if self.dim_time > 0:
+            tf = self.time_enc(mfg.nbr_dts)
+            ztf = self.time_enc(torch.zeros(B, device=dev))
+        else:
+            tf, ztf = h_src.new_zeros((B, F, 0)), h_dst.new_zeros((B, 0))
+        if hasattr(self, "w_q"):
+            q = self.w_q([h_dst, ztf])
+        else:                 # neither node input nor time: Q is ones
+            q = torch.ones((B, self.dim_out), device=dev,
+                           dtype=self.compute_dtype or torch.float32)
         kv = self.w_kv([h_src, ef, tf])
         D, H = self.dim_out, self.num_head
         dh = D // H

@@ -9,9 +9,12 @@ transposed.  The tree:
 - ``updater/FusedGRUCell_0/{ih,hh}/{kernel,bias}``,
   ``updater/TimeEncode_0/{w,b}`` (TGN only: a model without memory has no
   ``updater``)
-- per attention layer ``l{l}h{h}`` (TGN ``l0h0``; TGAT ``l0h0``, ``l1h0``):
-  ``{w_q,w_kv,w_out}/{kernel,bias}``, ``TimeEncode_0/{w,b}``,
-  ``LayerNorm_0/{scale,bias}``
+- per attention layer ``l{l}h{h}`` (TGN ``l0h0``; TGAT ``l0h0``, ``l1h0``;
+  DySAT ``l{0,1}h{0,1,2}``): ``{w_q,w_kv,w_out}/{kernel,bias}``,
+  ``TimeEncode_0/{w,b}``, ``LayerNorm_0/{scale,bias}``; a layer without
+  time encoding has no ``TimeEncode_0``, and one with neither time
+  encoding nor node input (DySAT's ``l0h*``) no ``w_q`` either
+- ``combiner/{ih,hh}/{kernel,bias}`` (more than one snapshot)
 - ``edge_predictor/{src_fc,dst_fc,out_fc}/{kernel,bias}``
 
 The port names a layer ``layers.l{l}h{h}``.

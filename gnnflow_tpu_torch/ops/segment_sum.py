@@ -1,17 +1,19 @@
-"""Sorted segment sum (K4) and the dedup expansion it differentiates.
+"""Sorted segment sum (K4), the dedup expansion it differentiates, and
+the block expansion of windowed snapshots.
 
 Counterpart of ``gnnflow_tpu/ops/segment_pallas.py``
-(``sorted_segment_sum`` and ``expand_compact`` with its custom VJP,
-``:119-205``).  :func:`sorted_segment_sum` launches the CUDA kernel of
+(``sorted_segment_sum``, ``expand_compact`` with its custom VJP,
+``expand_blocks`` with its own and ``expand_rows_spec``, ``:119-277``).
+:func:`sorted_segment_sum` launches the CUDA kernel of
 ``csrc/segment_sum.cu`` for CUDA tensors and runs
 :func:`sorted_segment_sum_ref` for CPU tensors.  :func:`expand_compact`
 gathers compact rows back to instances; its backward permutes the
 cotangents into sorted order and reduces them with K4.
+:func:`expand_blocks` has no kernel in the JAX package either: its
+forward and backward are gathers.
 
 The TPU's 128-lane pad around the expansion (``segment_pallas.py:274-277``,
 ``memory.py:563-567``) is a lane rule; the kernel takes any width.
-``expand_blocks`` and ``expand_rows_spec`` come with the DySAT and TGAT
-slices.
 """
 from __future__ import annotations
 
@@ -126,3 +128,57 @@ def _lib():
         lib.segment_sum_tile_rows.argtypes = []
         lib.segment_sum_tile_rows.restype = i
     return lib
+
+
+def expand_rows_spec(rst: torch.Tensor, spec, h: int = 0) -> torch.Tensor:
+    """Apply a ``("rows", inv, sidx, rank_sorted)`` dedup spec to the
+    compact layer output ``rst`` [cap, d] (``segment_pallas.py:263-277``
+    without its lane pad): :func:`expand_compact`.  Stacked per-snapshot
+    specs (``inv`` [S, L], from the snapshot dedup) are indexed by
+    snapshot ``h``."""
+    _, inv, sidx, rank_sorted = spec
+    if inv.dim() == 2:
+        inv, sidx, rank_sorted = inv[h], sidx[h], rank_sorted[h]
+    return expand_compact(rst, inv, sidx, rank_sorted)
+
+
+class _ExpandBlocks(torch.autograd.Function):
+    """``segment_pallas.py:209-260``: the head rows, then block
+    ``rank[b]`` of the compact tail for parent block ``b`` (the pad slot
+    ``cap`` gives zeros).  ``rank`` is injective on the packed blocks, so
+    the transpose is a gather by the inverse permutation, not a
+    scatter-add."""
+
+    @staticmethod
+    def forward(ctx, rst, rank, cap: int, fanout: int):
+        B, d = rank.shape[0], rst.shape[-1]
+        tail = torch.cat([rst[B:].reshape(cap, fanout * d),
+                          rst.new_zeros(1, fanout * d)])
+        ctx.save_for_backward(rank)
+        ctx.cap, ctx.fanout = cap, fanout
+        body = tail[rank.clamp(0, cap)].reshape(B * fanout, d)
+        return torch.cat([rst[:B], body])
+
+    @staticmethod
+    def backward(ctx, g):
+        (rank,) = ctx.saved_tensors
+        cap, fanout = ctx.cap, ctx.fanout
+        B, d = rank.shape[0], g.shape[-1]
+        # compact slot -> its parent block; unfilled slots read the zero
+        # row B
+        inv = torch.full((cap + 1,), B, dtype=torch.long, device=g.device)
+        inv[rank.clamp(0, cap)] = torch.arange(B, device=g.device)
+        g_body = torch.cat([g[B:].reshape(B, fanout * d),
+                            g.new_zeros(1, fanout * d)])
+        d_tail = g_body[inv[:cap]].reshape(cap * fanout, d)
+        return torch.cat([g[:B], d_tail]), None, None, None
+
+
+def expand_blocks(rst: torch.Tensor, rank: torch.Tensor, cap: int,
+                  fanout: int) -> torch.Tensor:
+    """Expand a compact layer's output ``rst`` [B + cap·F, d] (the B
+    parent roots, then ``cap`` packed F-wide neighbour blocks) to the
+    parent layer's ``[B·(1 + F), d]`` instances; ``rank`` [B] gives each
+    parent block's compact slot, ``cap`` for a block that was not packed
+    (its rows are zero)."""
+    return _ExpandBlocks.apply(rst, rank, cap, fanout)

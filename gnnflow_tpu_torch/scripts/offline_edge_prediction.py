@@ -1,4 +1,5 @@
-"""Offline temporal link-prediction training of TGN or TGAT on one card.
+"""Offline temporal link-prediction training of TGN, TGAT or DySAT on one
+card.
 
     python -m gnnflow_tpu_torch.scripts.offline_edge_prediction \
         --model TGN --data SYNTHETIC --epoch 3 [--device cpu]
@@ -9,9 +10,12 @@ multiple devices or ``lax.scan``): chronological batches with a random
 epoch start, memory reset at every epoch after the first, validation AP
 and AUC after every epoch, a best-AP checkpoint with a memory backup,
 early stopping, and a final test on the best checkpoint.  ``--calibrate``
-calibrates the dedups (TGN's memory dedup, TGAT's layer-dedup ladder) on
-the last three train batches before training; without it the trainer
-calibrates on its first batch.  After every epoch a model on the layer
+calibrates the fast paths (TGN's memory dedup, TGAT's layer-dedup ladder)
+on the last three train batches before training, and a config with
+windowed snapshots (DySAT: the block compaction's factor and the
+snapshot-dedup ladder) always does (``:209-219``); otherwise the trainer
+calibrates on its first batch.  ``--snapshot-time-window`` overrides the
+config's window.  After every epoch a model on the layer or snapshot
 dedup logs its tier takes and calibrates again when more than 30% of at
 least 20 steps since the last calibration fell back to the padded path
 (``:341-356``).  One flag
@@ -56,7 +60,7 @@ ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
 
 def make_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        description="offline TGN/TGAT link-prediction training")
+        description="offline TGN/TGAT/DySAT link-prediction training")
     parser.add_argument("--model", choices=MODELS, required=True)
     parser.add_argument("--data", choices=DATASETS, required=True)
     parser.add_argument("--data-dir", default=None)
@@ -107,7 +111,6 @@ def _refuse_unported(parser, args) -> None:
          "item 14"),
         (args.remat_attention, "--remat-attention", "item 14"),
         (args.use_scan, "--use-scan", "item 14"),
-        (args.snapshot_time_window, "--snapshot-time-window", "item 8"),
     ]
     for bad, what, item in unported:
         if bad:
@@ -149,6 +152,8 @@ def main(argv=None, checkpoint_path: Optional[str] = None) -> dict:
     if args.data.lower() != "synthetic":
         model_config, data_config = get_default_config(args.model,
                                                        args.data.lower())
+    if args.snapshot_time_window:
+        model_config["snapshot_time_window"] = args.snapshot_time_window
     train_data, val_data, test_data, full_data, node_feats, edge_feats, \
         dname = _load_data(args)
     logging.info("dataset %s: %d train / %d val / %d test edges",
@@ -180,7 +185,11 @@ def main(argv=None, checkpoint_path: Optional[str] = None) -> dict:
     dg = dgraph.device_graph(device)
     state = trainer.init_state(num_nodes, seed=args.seed)
 
-    if args.calibrate:
+    # windowed snapshots fill up over the stream, so their caps are
+    # measured on the stream's last train batches
+    windowed = (model_config.get("num_snapshots", 1) > 1
+                and model_config.get("snapshot_time_window", 0) > 0)
+    if args.calibrate or windowed:
         cal_neg = DstRandEdgeSampler(train_data.dst, seed=args.seed)
         cal = trainer.calibrate(dg, list(get_batches(train_data, batch_size,
                                                      cal_neg))[-3:])

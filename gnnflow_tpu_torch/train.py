@@ -1,4 +1,4 @@
-"""The train and eval steps of TGN and TGAT streaming link prediction.
+"""The train and eval steps of TGN, TGAT and DySAT link prediction.
 
 Counterpart of ``gnnflow_tpu/train.py``: ``link_pred_loss``
 (``:49-65``), ``_gather_rows`` and ``fetch_features`` (``:92-137``), and a
@@ -11,7 +11,7 @@ step then back-propagates and takes an Adam step; with memory, both write
 memory and mails back, computed with the parameters from before the step.
 PyTorch runs eagerly, so there is no ``jit``.
 
-Two exact dedups are ported, each a Python branch on a unique count where
+Three exact fast paths are ported, each a Python branch on a count where
 the JAX package has ``lax.cond``, so one host sync per decision:
 
 - the (nid, ts) memory dedup (``dedup_factor``, ``:861-904``) for models
@@ -25,11 +25,21 @@ the JAX package has ``lax.cond``, so one host sync per decision:
   boundaries take one cap; an overflow runs the remaining layers padded.
   ``calibrate`` picks the ladder (``:514-538, 624-698``), and
   ``tier_take_stats`` and ``maybe_recalibrate`` follow the takes
-  (``:752-785``).
+  (``:752-785``).  With windowed snapshots (DySAT) the same knob runs the
+  snapshot dedup (``_snapshot_dedup_outputs``, ``:1093-1198``): each
+  snapshot dedups its parent's instances, and one sync per boundary reads
+  the largest unique count over the snapshots;
+- the block compaction of windowed snapshots (``model_compact``,
+  ``compact_factor``, ``_model_compact_outputs``, ``:906-990``): a deeper
+  layer samples only the valid neighbour blocks of its parent, packed
+  into ``ceil(compact_factor · B)`` slots per snapshot, and its output
+  expands back with ``expand_blocks``; a snapshot with more valid blocks
+  runs the remaining layers padded.
 
-The block compaction of windowed snapshots (``compact_factor``,
-``model_compact``) comes with the DySAT slice; the GRU-table path is an
-opt-in variant not ported yet (ROADMAP.md).
+A step takes the snapshot dedup, then the block compaction, then the
+layer dedup, then the padded path, the first that is set
+(``:1209-1236``).  The GRU-table path is an opt-in variant not ported yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -48,7 +58,10 @@ from gnnflow_tpu_torch.dynamic_graph import DeviceGraph
 from gnnflow_tpu_torch.models import memory as memory_lib
 from gnnflow_tpu_torch.models.dgnn import DGNN
 from gnnflow_tpu_torch.ops.dedup import dedup_instances
-from gnnflow_tpu_torch.ops.sampling import sample_hops, sample_layer
+from gnnflow_tpu_torch.ops.sampling import (boundary_overflow,
+                                             sample_deeper_compact,
+                                             sample_hops, sample_layer,
+                                             sample_layer_snapshots)
 
 # the sampling generator's seed is this plus init_state's seed, so its
 # draws are not the dropout generator's
@@ -61,12 +74,14 @@ class TrainState:
     parameters, the dropout and the sampling generators (on the trainer's
     device), the count of train steps, and what the last step's dedups
     saw: the memory dedup's unique (nid, ts) count (None when the step ran
-    without it); the layer dedup's unique count at each boundary it
-    examined and the number of boundaries that took a tier (each one
-    expansion, whose backward is one K4 launch).  ``tier_takes`` is the
-    layer dedup's take histogram over train steps (models it applies to;
-    else None): index = tier caps the first boundary's unique count
-    exceeded, 3 and up clamped to 3 (``train.py:40-46``)."""
+    without it); the layer (or snapshot) dedup's unique count at each
+    boundary it examined (the largest over the snapshots) and the number
+    of boundaries that took a tier (each one expansion per snapshot,
+    whose backward is one K4 launch each); the number of boundaries that
+    ran on the block compaction.  ``tier_takes`` is the layer dedup's take
+    histogram over train steps (models it applies to; else None): index
+    = tier caps the first boundary's unique count exceeded, 3 and up
+    clamped to 3 (``train.py:40-46``)."""
     memory: Optional[memory_lib.MemoryState]
     optimizer: torch.optim.Optimizer
     dropout_gen: torch.Generator
@@ -76,6 +91,7 @@ class TrainState:
     tier_takes: Optional[List[int]] = None
     layer_dedup_n_uniq: Optional[List[int]] = None
     layer_dedup_compact: int = 0
+    block_compact: int = 0
 
 
 def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor):
@@ -129,7 +145,16 @@ def tier_caps(factors: Sequence[float], num_all: int) -> List[int]:
     return caps
 
 
-def tier_ladder(boundary_frac, num_layers: int):
+def compact_factor_for(occupancy: float) -> Optional[float]:
+    """The block compaction's factor from the worst measured occupancy of
+    deeper layers' neighbour slots (``train.py:595-600``): 1.4x headroom
+    + 0.02, at most 0.9; None (off) at 0.6 and above."""
+    return round(min(0.9, 1.4 * occupancy + 0.02), 2) \
+        if occupancy < 0.6 else None
+
+
+def tier_ladder(boundary_frac, num_layers: int,
+                compact_factor: Optional[float] = None):
     """The layer dedup's ``(layer_dedup, layer_dedup_deep)`` from measured
     unique fractions (``train.py:624-698``): ``boundary_frac`` holds one
     ``(first-boundary fraction, worst deeper-boundary fraction)`` pair per
@@ -141,7 +166,10 @@ def tier_ladder(boundary_frac, num_layers: int):
     a ladder (at or below 0.85); models of three or more layers keep the
     lowest and the top tier.  Deeper boundaries take one cap, 1.1x their
     worst fraction + 0.02 (at most 0.85).  A ladder of one tier is a
-    float; none is None (off)."""
+    float; none is None (off).  With windowed snapshots the block
+    compaction's ``compact_factor`` is passed: a ladder whose lowest tier
+    is at least 0.9 of it is dropped, since the compaction is then as
+    tight (``:692-695``); the deep cap stays set, as there."""
     b1s = sorted(b for b, _ in boundary_frac)
     deep_worst = max(m for _, m in boundary_frac)
     worst = max(deep_worst, b1s[-1])
@@ -160,17 +188,24 @@ def tier_ladder(boundary_frac, num_layers: int):
             if tiers and deep_worst > 0 else None)
     ladder = (None if not tiers
               else tiers[0] if len(tiers) == 1 else tuple(tiers))
+    if ladder is not None and compact_factor is not None \
+            and min(tiers) >= 0.9 * compact_factor:
+        ladder = None
     return ladder, deep
 
 
-def _uniq_pairs_frac(m: MFG) -> float:
-    """Unique valid (nid, ts bits) pairs of an MFG's instances over all
-    its instances."""
-    nid = m.all_nodes().cpu().numpy()
-    mts = m.all_ts().cpu().numpy().view(np.int32)
-    valid = m.all_mask().cpu().numpy()
-    pairs = np.stack([nid[valid], mts[valid]], 1)
-    return np.unique(pairs, axis=0).shape[0] / max(nid.size, 1)
+def _uniq_pairs_frac(layer: Sequence[MFG]) -> float:
+    """The largest over a layer's snapshots of the unique valid (nid, ts
+    bits) pairs of an MFG's instances over all its instances."""
+    frac = 0.0
+    for m in layer:
+        nid = m.all_nodes().cpu().numpy()
+        mts = m.all_ts().cpu().numpy().view(np.int32)
+        valid = m.all_mask().cpu().numpy()
+        pairs = np.stack([nid[valid], mts[valid]], 1)
+        frac = max(frac, np.unique(pairs, axis=0).shape[0]
+                   / max(nid.size, 1))
+    return frac
 
 
 class Trainer:
@@ -180,20 +215,30 @@ class Trainer:
 
     ``fanouts`` has one entry per model layer, outermost first;
     ``sample_strategy`` is ``"recent"`` or ``"uniform"`` (draws from the
-    state's sampling generator).
+    state's sampling generator).  ``num_snapshots`` windows of
+    ``snapshot_time_window`` each end at a root's timestamp (one snapshot:
+    the window ``[ts - W, ts)``, or the full history at 0); ``prop_time``
+    gives neighbours their root's timestamp.
 
     ``dedup_factor`` sizes the compact table of the memory dedup as a
     fraction of the instances (``None``: off; models with memory only).
-    ``layer_dedup`` is the layer dedup's factor or ascending ladder of
-    factors (``None``: off; models of two or more layers without memory).
-    ``"auto"`` leaves a knob off until :meth:`calibrate` measures the
-    stream, which the first :meth:`train_step` does; an explicit value,
-    ``None`` included, is a decision calibration keeps
-    (``train.py:168-218, 271-286``)."""
+    ``layer_dedup`` is the layer (or, with windowed snapshots, snapshot)
+    dedup's factor or ascending ladder of factors (``None``: off; models
+    of two or more layers without memory).  ``model_compact`` runs the
+    block compaction of windowed snapshots at ``compact_factor``, which
+    with windowed snapshots also compacts the padded path's sampling.
+    ``"auto"``: ``compact_factor`` 0.25 and ``model_compact`` on for
+    windowed snapshots and two or more layers without memory, until
+    :meth:`calibrate` measures the stream, which the first
+    :meth:`train_step` does; the dedups stay off until then.  An explicit
+    value, ``None`` included, is a decision calibration keeps
+    (``train.py:165-218, 271-286``)."""
 
     def __init__(self, model: DGNN, *, fanouts, sample_strategy="recent",
-                 lr: float = 1e-4, dedup_factor="auto", layer_dedup="auto",
-                 device="cuda"):
+                 num_snapshots: int = 1, snapshot_time_window: float = 0.0,
+                 prop_time: bool = False, lr: float = 1e-4,
+                 compact_factor="auto", dedup_factor="auto",
+                 model_compact="auto", layer_dedup="auto", device="cuda"):
         self.fanouts = tuple(int(f) for f in fanouts)
         if len(self.fanouts) != model.num_layers:
             raise ValueError(f"{len(self.fanouts)} fanouts for a model of "
@@ -201,12 +246,25 @@ class Trainer:
         if sample_strategy not in ("recent", "uniform"):
             raise ValueError(f"sample_strategy must be 'recent' or "
                              f"'uniform', got {sample_strategy!r}")
+        if int(num_snapshots) != model.num_snapshots:
+            raise ValueError(f"{num_snapshots} snapshots for a model of "
+                             f"{model.num_snapshots}")
         self.strategy = sample_strategy
+        self.num_snapshots = int(num_snapshots)
+        self.window = float(snapshot_time_window)
+        self.prop_time = bool(prop_time)
         self.model = model
         self.lr = lr
         self.device = resolve_device(device)
-        self._auto = {"dedup": dedup_factor == "auto",
+        self._auto = {"compact": compact_factor == "auto",
+                      "dedup": dedup_factor == "auto",
                       "layer_dedup": layer_dedup == "auto"}
+        windowed = self._windowed()
+        self.compact_factor = (0.25 if windowed else None) \
+            if self._auto["compact"] else compact_factor
+        self.model_compact = bool(
+            windowed and len(self.fanouts) >= 2 and not model.use_memory
+            if model_compact == "auto" else model_compact)
         self.dedup_factor = None if self._auto["dedup"] else dedup_factor
         self.layer_dedup = None if self._auto["layer_dedup"] \
             else layer_dedup
@@ -214,16 +272,23 @@ class Trainer:
         self.layer_dedup_deep = None
         if self.layer_dedup is not None and not self._layer_dedup_ok():
             raise ValueError("layer_dedup requires a DGNN of two or more "
-                             "layers without memory (TGAT)")
+                             "layers without memory (TGAT), with one "
+                             "snapshot or windowed ones (DySAT)")
         self._calibrated = not (
-            (model.use_memory and self._auto["dedup"])
+            (windowed and (self._auto["compact"]
+                           or self._auto["layer_dedup"]))
+            or (model.use_memory and self._auto["dedup"])
             or (self._layer_dedup_ok() and self._auto["layer_dedup"]))
         self.calibration: Optional[dict] = None
 
+    def _windowed(self) -> bool:
+        return self.num_snapshots > 1 and self.window > 0
+
     def _layer_dedup_ok(self) -> bool:
         """Does the layer dedup apply (``train.py:291-310``): two or more
-        layers and no memory."""
-        return len(self.fanouts) >= 2 and not self.model.use_memory
+        layers, no memory, and one snapshot or windowed ones."""
+        return (len(self.fanouts) >= 2 and not self.model.use_memory
+                and (self.num_snapshots == 1 or self.window > 0))
 
     def init_state(self, num_nodes: int, seed: int = 0) -> TrainState:
         """Zero memory for ``num_nodes`` nodes (models with memory), a
@@ -257,73 +322,134 @@ class Trainer:
         return (float(ld),)
 
     def _uniform(self, gen: torch.Generator, shape) -> torch.Tensor:
-        """Uniform sampling's draws [B, F] in [0, 1), float32."""
+        """Uniform sampling's draws in [0, 1), float32."""
         return torch.rand(shape, generator=gen, device=self.device)
 
-    def _sample_layer(self, gen, dg, roots, ts, layer: int) -> MFG:
+    def _window_kw(self) -> dict:
+        return dict(strategy=self.strategy, num_snapshots=self.num_snapshots,
+                    window=self.window, prop_time=self.prop_time)
+
+    def _sample_layer(self, gen, dg, R, T, layer: int,
+                      shared_roots: bool = False) -> List[MFG]:
+        """Every snapshot of one layer on [S, B] roots at [S, B]
+        timestamps, with [S, B, F] uniform draws (``train.py:426-449``):
+        S MFGs."""
         fanout = self.fanouts[layer]
-        u = self._uniform(gen, (roots.shape[0], fanout)) \
+        u = self._uniform(gen, tuple(R.shape) + (fanout,)) \
             if self.strategy == "uniform" else None
-        return sample_layer(dg, roots, ts, fanout=fanout,
-                            strategy=self.strategy, u=u)
+        if self.num_snapshots == 1:
+            return [sample_layer(dg, R[0], T[0], fanout=fanout,
+                                 u=None if u is None else u[0],
+                                 **self._window_kw())]
+        return sample_layer_snapshots(dg, R, T, fanout=fanout, u=u,
+                                      shared_roots=shared_roots,
+                                      **self._window_kw())
 
-    def _sample(self, gen, dg, roots, ts) -> List[List[MFG]]:
-        """Padded MFGs of every layer, innermost first."""
+    def _sample(self, gen, dg, roots, ts,
+                compact: bool = True) -> List[List[MFG]]:
+        """Padded MFGs of every layer and snapshot, innermost first;
+        windowed snapshots sample deeper layers compacted at
+        ``compact_factor`` unless ``compact`` is False (calibration)."""
         return sample_hops(dg, roots, ts, fanouts=self.fanouts,
-                           strategy=self.strategy,
-                           draw=lambda _, shape: self._uniform(gen, shape))
+                           compact_factor=self.compact_factor if compact
+                           else None,
+                           draw=lambda _, shape: self._uniform(gen, shape),
+                           **self._window_kw())
 
-    def _layer_dedup_mfgs(self, state: TrainState, dg, roots, ts):
-        """The layer dedup's MFGs (``train.py:992-1091``): from the outer
-        layer in, each boundary dedups the parent layer's (nid, ts)
-        instances at its largest cap (one host sync for the unique
-        count), and the next layer samples the unique pairs at the
-        tightest cap that holds them (unused rows invalid); at an overflow
-        the remaining layers sample padded.  The first boundary takes the
-        tier ladder, deeper ones ``layer_dedup_deep`` or the ladder's top.
-
-        Returns ``(mfgs, expansions, take)``: MFGs and ``("rows", inv,
-        sidx, rank_sorted)`` specs, innermost first (the spec of layer
-        ``l`` expands its output to layer ``l + 1``'s instances), and the
-        first boundary's histogram index."""
-        factors = self._dedup_tiers()
-        gen = state.sample_gen
-        mlist = [self._sample_layer(gen, dg, roots, ts, 0)]
+    def _chain(self, state: TrainState, dg, roots, ts, boundary):
+        """The MFGs of a fast path, from the outer layer in: the first
+        layer samples the batch roots (shared by the snapshots); at each
+        deeper boundary ``boundary(layer, prev, sample)`` returns the next
+        layer's S MFGs over a compact root set, sampled with
+        ``sample(R, T)`` from [S, n] roots and timestamps, and the spec
+        that expands its output back; or None, after which the remaining
+        layers sample padded.  Returns ``(mfgs, expansions, compact)``,
+        innermost first, and the number of boundaries on the fast path."""
+        gen, S = state.sample_gen, self.num_snapshots
+        mlist = [self._sample_layer(gen, dg, roots[None].expand(S, -1),
+                                    ts[None].expand(S, -1), 0,
+                                    shared_roots=True)]
         exps = [None]
-        take, n_uniqs = 3, []
-        L = len(self.fanouts)
-        layer = 1
+        layer, L = 1, len(self.fanouts)
         while layer < L:
-            prev = mlist[-1]
-            caps = tier_caps(factors if layer == 1 else
-                             [self.layer_dedup_deep or factors[-1]],
-                             prev.num_all)
-            uniq_nid, uniq_ts, inv, n_uniq, sidx, rank_sorted = \
-                dedup_instances(prev.all_nodes(), prev.all_ts(),
-                                prev.all_mask(), caps[-1])
-            n = int(n_uniq)                 # the boundary's host sync
-            n_uniqs.append(n)
-            if layer == 1:
-                take = min(sum(n > c for c in caps), 3)
-            cap = next((c for c in caps if n <= c), None)
-            if cap is None:
+            step = boundary(layer, mlist[-1], lambda R, T, li=layer:
+                            self._sample_layer(gen, dg, R, T, li))
+            if step is None:
                 break
-            nid_c = torch.where(
-                torch.arange(cap, device=uniq_nid.device) < n,
-                uniq_nid[:cap], INVALID_NID)
-            mlist.append(self._sample_layer(gen, dg, nid_c, uniq_ts[:cap],
-                                            layer))
-            exps.append(("rows", inv, sidx, rank_sorted))
+            mlist.append(step[0])
+            exps.append(step[1])
             layer += 1
-        state.layer_dedup_n_uniq = n_uniqs
-        state.layer_dedup_compact = len(mlist) - 1
+        compact = layer - 1
         for li in range(layer, L):          # padded after an overflow
             prev = mlist[-1]
-            mlist.append(self._sample_layer(gen, dg, prev.all_nodes(),
-                                            prev.all_ts(), li))
+            mlist.append(self._sample_layer(
+                gen, dg, torch.stack([m.all_nodes() for m in prev]),
+                torch.stack([m.all_ts() for m in prev]), li))
             exps.append(None)
-        return ([[m] for m in reversed(mlist)], list(reversed(exps)),
-                take)
+        return mlist[::-1], exps[::-1], compact
+
+    def _model_compact_mfgs(self, state: TrainState, dg, roots, ts):
+        """The block compaction's MFGs (``train.py:906-990``): each
+        boundary packs each snapshot's valid neighbour blocks of the
+        parent into ``ceil(compact_factor · B)`` slots (one host sync for
+        the overflow) and the next layer samples the packed roots, whose
+        output a ``("blocks", rank [S, B], cap, F)`` spec expands back.
+        Returns ``(mfgs, expansions)``, innermost first."""
+        def boundary(layer, prev, sample):
+            B, F = prev[0].num_dst, prev[0].fanout
+            cap = min(B, max(1, math.ceil(float(self.compact_factor) * B)))
+            if bool(boundary_overflow(prev, cap)):  # the boundary's sync
+                return None
+            inner, rank = sample_deeper_compact(dg, prev, cap,
+                                                sample_fn=sample)
+            return inner, ("blocks", rank, cap, F)
+
+        mfgs, exps, state.block_compact = self._chain(state, dg, roots, ts,
+                                                      boundary)
+        return mfgs, exps
+
+    def _dedup_mfgs(self, state: TrainState, dg, roots, ts):
+        """The layer dedup's MFGs (``train.py:992-1091``), and with
+        windowed snapshots the snapshot dedup's (``:1093-1198``): each
+        boundary dedups each snapshot's parent instances at its largest
+        cap, one host sync reads the largest unique count over the
+        snapshots, and the next layer samples each snapshot's unique
+        (nid, ts) pairs at the tightest cap that holds them all (unused
+        rows invalid), or, at an overflow, every remaining layer padded.
+        The first boundary takes the tier ladder, deeper ones
+        ``layer_dedup_deep`` or the ladder's top.
+
+        Returns ``(mfgs, expansions, take)``: MFGs and stacked [S, L]
+        ``("rows", inv, sidx, rank_sorted)`` specs, innermost first (the
+        spec of layer ``l`` expands its output to layer ``l + 1``'s
+        instances), and the first boundary's histogram index."""
+        factors = self._dedup_tiers()
+        take, n_uniqs = [3], []
+
+        def boundary(layer, prev, sample):
+            caps = tier_caps(factors if layer == 1 else
+                             [self.layer_dedup_deep or factors[-1]],
+                             prev[0].num_all)
+            dd = [dedup_instances(m.all_nodes(), m.all_ts(), m.all_mask(),
+                                  caps[-1]) for m in prev]
+            n = int(torch.stack([d[3] for d in dd]).max())  # one sync
+            n_uniqs.append(n)
+            if layer == 1:
+                take[0] = min(sum(n > c for c in caps), 3)
+            cap = next((c for c in caps if n <= c), None)
+            if cap is None:
+                return None
+            slot = torch.arange(cap, device=roots.device)
+            R = torch.stack([torch.where(slot < d[3], d[0][:cap],
+                                         INVALID_NID) for d in dd])
+            T = torch.stack([d[1][:cap] for d in dd])
+            return sample(R, T), ("rows",) + tuple(
+                torch.stack([d[i] for d in dd]) for i in (2, 4, 5))
+
+        mfgs, exps, state.layer_dedup_compact = self._chain(
+            state, dg, roots, ts, boundary)
+        state.layer_dedup_n_uniq = n_uniqs
+        return mfgs, exps, take[0]
 
     def _mem_input(self, state: TrainState, mfg: MFG):
         """The memory updater's input (``train.py:834-904``): the dedup's
@@ -355,9 +481,11 @@ class Trainer:
                 train: bool = False):
         """Sample, gather edge features and pull memory rows for a batch:
         ``(mfgs, efs, mem_input, eids, valid, expansions)``; ``mem_input``
-        is None without memory, ``expansions`` None off the layer dedup.
-        A train batch on the layer dedup counts its take in
-        ``state.tier_takes``."""
+        is None without memory, ``expansions`` None on the padded path.
+        The path is the first that is set of the snapshot dedup, the block
+        compaction, the layer dedup and the padded path
+        (``train.py:1209-1236``).  A train batch on either dedup counts
+        its take in ``state.tier_takes``."""
         dev = self.device
         target_nodes = torch.from_numpy(batch.target_nodes).to(dev)
         ts = torch.from_numpy(batch.ts).to(dev)
@@ -365,15 +493,23 @@ class Trainer:
         valid = torch.zeros(batch.batch_size, dtype=torch.bool)
         valid[: batch.num_valid] = True
         valid = valid.to(dev)
-        expansions = None
+        expansions, take = None, None
         state.layer_dedup_n_uniq, state.layer_dedup_compact = None, 0
-        if self.layer_dedup is not None:
-            mfgs, expansions, take = self._layer_dedup_mfgs(
-                state, dg, target_nodes, ts)
-            if train:
-                state.tier_takes[take] += 1
+        state.block_compact = 0
+        compaction = self.model_compact and self.compact_factor is not None
+        if self.layer_dedup is not None and (self.num_snapshots > 1
+                                             or not compaction):
+            mfgs, expansions, take = self._dedup_mfgs(state, dg,
+                                                      target_nodes, ts)
+        elif compaction:
+            mfgs, expansions = self._model_compact_mfgs(state, dg,
+                                                        target_nodes, ts)
         else:
             mfgs = self._sample(state.sample_gen, dg, target_nodes, ts)
+        if train and take is not None:
+            state.tier_takes[take] += 1
+        if expansions is not None and all(e is None for e in expansions):
+            expansions = None
         efs = fetch_features(mfgs, edge_feats)
         mem_input = self._mem_input(state, mfgs[0][0]) \
             if self.model.use_memory else None
@@ -437,35 +573,46 @@ class Trainer:
 
     def calibrate(self, dg: DeviceGraph, batches, *, max_batches: int = 3,
                   occ_batches=()) -> dict:
-        """Pick the dedup knobs left on ``"auto"`` from measured (nid, ts)
-        uniqueness (``train.py:451-698``).
+        """Pick the knobs left on ``"auto"`` from the measured stream
+        (``train.py:451-698``).
 
-        Samples, padded, up to ``max_batches`` of ``batches`` (batch
-        objects or ``(roots, ts)`` pairs) and every ``(roots, ts)`` pair
-        of ``occ_batches``; uniform draws come from a generator seeded
-        with 0 for each probe, as the JAX package's one probe key.  With
-        memory, the worst unique fraction ``u`` of the memory instances
-        sets ``dedup_factor`` to ``round(min(0.35, 2.5u + 0.02), 2)`` when
-        ``u <= 0.08`` and None (off) above.  Where the layer dedup
-        applies, each probe gives the unique fraction at the first layer
-        boundary and the worst at deeper ones, and :func:`tier_ladder`
-        sets ``layer_dedup`` and ``layer_dedup_deep``.  Returns
-        ``{"uniq_frac", "boundary_uniq_frac", "dedup_factor",
-        "layer_dedup", "layer_dedup_deep"}``, also kept as
-        ``self.calibration``."""
+        Samples, padded and uncompacted, up to ``max_batches`` of
+        ``batches`` (batch objects or ``(roots, ts)`` pairs) and every
+        ``(roots, ts)`` pair of ``occ_batches``; uniform draws come from a
+        generator seeded with 0 for each probe, as the JAX package's one
+        probe key.  With windowed snapshots, the worst occupancy of deeper
+        layers' neighbour slots sets ``compact_factor``
+        (:func:`compact_factor_for`).  With memory, the worst unique
+        fraction ``u`` of the memory instances sets ``dedup_factor`` to
+        ``round(min(0.35, 2.5u + 0.02), 2)`` when ``u <= 0.08`` and None
+        (off) above.  Where the layer dedup applies, each probe gives the
+        unique fraction at the first layer boundary and the worst at
+        deeper ones (each the largest over the snapshots), and
+        :func:`tier_ladder` sets ``layer_dedup`` and ``layer_dedup_deep``.
+        Returns ``{"occupancy", "uniq_frac", "boundary_uniq_frac",
+        "compact_factor", "dedup_factor", "layer_dedup",
+        "layer_dedup_deep"}``, also kept as ``self.calibration``."""
         self._calibrated = True
-        uniq_frac, boundary_frac = [], []
+        windowed = self._windowed()
+        occ, uniq_frac, boundary_frac = [], [], []
         probes = [b if isinstance(b, tuple) else (b.target_nodes, b.ts)
                   for b in itertools.islice(batches, max_batches)]
-        for roots, ts in probes + list(occ_batches):
-            u, b = self._probe(dg, roots, ts)
+        for i, (roots, ts) in enumerate(probes + list(occ_batches)):
+            o, u, b = self._probe(dg, roots, ts)
+            # occupancy counts on the stream-shifted probes only when
+            # windowed (``:571-572``); it is read only then anyway
+            if i < len(probes) or windowed:
+                occ += o
             if u is not None:
                 uniq_frac.append(u)
             if b is not None:
                 boundary_frac.append(b)
-        stats = {"uniq_frac": max(uniq_frac) if uniq_frac else None,
+        stats = {"occupancy": max(occ) if occ else None,
+                 "uniq_frac": max(uniq_frac) if uniq_frac else None,
                  "boundary_uniq_frac": max(m for _, m in boundary_frac)
                  if boundary_frac else None}
+        if occ and windowed and self._auto["compact"]:
+            self.compact_factor = compact_factor_for(stats["occupancy"])
         if uniq_frac and self._auto["dedup"]:
             # the GRU dedup saves only the GRU gates and the pull; its
             # sort machinery pays only at extreme duplication
@@ -474,8 +621,10 @@ class Trainer:
                 if u <= 0.08 else None
         if boundary_frac and self._auto["layer_dedup"]:
             self.layer_dedup, self.layer_dedup_deep = tier_ladder(
-                boundary_frac, len(self.fanouts))
-        stats.update(dedup_factor=self.dedup_factor,
+                boundary_frac, len(self.fanouts),
+                self.compact_factor if self.num_snapshots > 1 else None)
+        stats.update(compact_factor=self.compact_factor,
+                     dedup_factor=self.dedup_factor,
                      layer_dedup=self.layer_dedup,
                      layer_dedup_deep=self.layer_dedup_deep)
         self.calibration = stats
@@ -483,24 +632,30 @@ class Trainer:
 
     @torch.no_grad()
     def _probe(self, dg: DeviceGraph, roots, ts):
-        """One calibration probe, sampled padded: the unique fraction of
-        the innermost MFG's memory instances (None without memory) and,
-        where the layer dedup applies, the pair (unique fraction at the
-        first boundary, worst at deeper boundaries; 0.0 without any),
-        else None (``train.py:496-538``)."""
+        """One calibration probe, sampled padded and uncompacted
+        (``train.py:496-538``): the occupancy of each deeper layer's
+        neighbour slots in each snapshot; the unique fraction of the
+        innermost MFG's memory instances (None without memory); where the
+        layer dedup applies, the pair (unique fraction at the first
+        boundary, worst at deeper boundaries; 0.0 without any), each the
+        largest over the snapshots, else None."""
         dev = self.device
         gen = torch.Generator(device=dev).manual_seed(0)
         mfgs = self._sample(
             gen, dg, torch.from_numpy(np.asarray(roots, np.int64)).to(dev),
-            torch.from_numpy(np.asarray(ts, np.float32)).to(dev))
-        u = _uniq_pairs_frac(mfgs[0][0]) if self.model.use_memory else None
+            torch.from_numpy(np.asarray(ts, np.float32)).to(dev),
+            compact=False)
+        occ = [m.nbr_mask.float().mean().item()
+               for layer in mfgs[1:] for m in layer]
+        u = _uniq_pairs_frac(mfgs[0][:1]) if self.model.use_memory \
+            else None
         b = None
         if self._layer_dedup_ok():
             # mfgs[1:] run from the layer after the innermost out; the
             # outermost's instances are the first boundary's roots
-            us = [_uniq_pairs_frac(layer[0]) for layer in mfgs[1:]]
+            us = [_uniq_pairs_frac(layer) for layer in mfgs[1:]]
             b = (us[-1], max(us[:-1]) if len(us) > 1 else 0.0)
-        return u, b
+        return occ, u, b
 
     def _maybe_auto_calibrate(self, dg: DeviceGraph, roots, ts) -> None:
         """First-batch calibration (``train.py:719-750``): the batch, and

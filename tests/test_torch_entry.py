@@ -124,17 +124,23 @@ def test_build_dynamic_graph_from_data_configs():
         build_dynamic_graph(**{**data_cfg, "insertion_policy": "replace"})
 
 
-@pytest.mark.parametrize("name", ["dysat", "apan", "graphsage", "gat"])
-def test_build_model_names_the_roadmap_item(name):
+@pytest.mark.parametrize("name, dim_node", [
+    pytest.param("dysat", 4, id="dysat"),   # node features: item 10
+    pytest.param("apan", 0, id="apan"),
+    pytest.param("graphsage", 0, id="graphsage"),
+    pytest.param("gat", 0, id="gat")])
+def test_build_model_names_the_roadmap_item(name, dim_node):
     cfg, _ = config.get_default_config(name, "synthetic")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(name, cfg, 0, 6, device="cpu")
+        build_model(name, cfg, dim_node, 6, device="cpu")
 
 
 def test_build_model_tgn():
     cfg, _ = config.get_default_config("tgn", "synthetic")
     model, kw = build_model("TGN", cfg, 0, 6, seed=1, device="cpu")
-    assert kw == {"fanouts": [10], "sample_strategy": "recent"}
+    assert kw == {"fanouts": [10], "sample_strategy": "recent",
+                  "num_snapshots": 1, "snapshot_time_window": 0,
+                  "prop_time": False}
     assert model.dim_memory == 100
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model("tgn", {**cfg, "neg_sample_ratio": 2}, 0, 6,
@@ -144,8 +150,8 @@ def test_build_model_tgn():
 @pytest.mark.parametrize("flags", [
     ["--cache", "LRUCache"], ["--num-devices", "2"],
     ["--memory-storage", "bfloat16"], ["--remat-attention"], ["--use-scan"],
-    ["--snapshot-time-window", "10"], ["--features-on-host"],
-    ["--model", "DySAT"]])
+    ["--pipeline"], ["--features-on-host"],
+    ["--model", "APAN"]])
 def test_entry_refuses_unported_flags(flags, capsys):
     with pytest.raises(SystemExit):
         entry.main(["--model", "TGN", "--data", "SYNTHETIC", *flags])

@@ -111,9 +111,9 @@ def test_weight_loader_rejects_other_trees():
                 "edge_predictor.src_fc.kernel"]}}}})
 
 
-@pytest.mark.parametrize("kw", [dict(num_snapshots=3),
+@pytest.mark.parametrize("kw", [dict(dim_node=4),
                                 dict(memory_updater="transformer"),
-                                dict(use_memory=False, dim_time=0),
+                                dict(dim_time=0),
                                 dict(num_layers=2)])
 def test_unported_configs_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -306,9 +306,11 @@ def test_tgat_logits_and_gradients_match_jax(jax_run):
 
 
 def test_dgnn_refuses_block_expansions():
+    """An expansion spec is ``("rows", ...)`` or ``("blocks", ...)``;
+    any other kind is refused before a layer runs."""
     model = DGNN(**CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        model([[None]] * 2, [[None]] * 2, expansions=[("blocks",), None])
+    with pytest.raises(ValueError, match="expansion spec"):
+        model([[None]] * 2, [[None]] * 2, expansions=[("bricks",), None])
 
 
 # ---- (e), (f): training, padded and on the layer dedup --------------------
@@ -457,7 +459,9 @@ def test_build_model_tgat():
     cfg, _ = config.get_default_config("tgat", "reddit")
     model, kw = build_model("TGAT", {**cfg, "compute_dtype": "bfloat16"}, 0,
                             172, seed=1, device="cpu")
-    assert kw == {"fanouts": [10, 10], "sample_strategy": "uniform"}
+    assert kw == {"fanouts": [10, 10], "sample_strategy": "uniform",
+                  "num_snapshots": 1, "snapshot_time_window": 0,
+                  "prop_time": False}
     assert not model.use_memory and not hasattr(model, "updater")
     assert sorted(model.layers) == ["l0h0", "l1h0"]
     assert (model.dropout, model.att_dropout) == (0.1, 0.1)
