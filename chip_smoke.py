@@ -76,6 +76,22 @@ Phases (each prints one line; any failure raises and exits non-zero):
    never), one epoch of the entry script; then K3 at the inner layer's
    padded, block-compact and deduplicated shapes and K4 at the snapshot
    boundary against their plain versions.
+11. apan: APAN as ``bench.py:127-160`` runs it (REDDIT defaults through
+   ``build_model``: 1 layer, fanout 10, recent sampling, memory, time and
+   embedding dims 100, 2 heads, the transformer memory updater over a
+   10-slot circular mailbox, dropout and attention dropout 0.1, bf16
+   compute, 172-dim edge features, batch 4000) on the same stream: 10
+   eval batches on the pre-projected K/V table pull (K3 once a batch), 20
+   train steps with the default trainer (the first calibrates the memory
+   dedup by the transformer's rule; K3 never, K4 once a step on the
+   dedup), 5 steps at attention dropout 0 on the dedup at factor 0.6 (K3
+   and its backward once a step, K4 once a step that fits), 5 at factor
+   0.01 (all fall back, K4 never), one f32 train step of the per-instance
+   pull against the table pull from one state, one epoch of the entry
+   script; the device time of the table pull's forward and its kernel
+   gradient and of the updater's attention; then K3 at the embedding
+   layer's eval shape and K4 at the memory dedup's boundary against their
+   plain versions.  Phase 8's CPU-card check holds APAN in f32 too.
 
 Then one JSON line with every kernel's numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.
@@ -1620,6 +1636,346 @@ def phase_dysat(torch, kernels, stream):
                 block_compaction=bc, fallback=fb, entry=en)
 
 
+def _apan(att_dropout=None, compute_dtype="bfloat16", device="cuda",
+          **knobs):
+    """APAN as bench.py:127-160 builds it: the REDDIT defaults of the
+    config registry (1 layer, fanout 10, recent sampling, memory, time and
+    embedding dims 100, 2 heads, the transformer memory updater over 10
+    mail slots, dropout and attention dropout 0.1) in bf16 compute over f32
+    parameters, no node input, 172-dim edge features, seeded random
+    weights, through ``build_model`` and the trainer arguments it returns;
+    ``knobs`` set the trainer's fast paths."""
+    from gnnflow_tpu_torch.config import get_default_config
+    from gnnflow_tpu_torch.models.factory import build_model
+    from gnnflow_tpu_torch.train import Trainer
+    mc, _ = get_default_config("APAN", "REDDIT")
+    mc["compute_dtype"] = compute_dtype
+    if att_dropout is not None:
+        mc["att_dropout"] = att_dropout
+    model, kw = build_model("APAN", mc, 0, 172, seed=0, device=device)
+    return model, Trainer(model, lr=1e-4, device=device, **kw, **knobs)
+
+
+def phase_apan(torch, kernels, stream):
+    """APAN (``_apan``) on the REDDIT-shaped stream at batch 4000: eval
+    batches on the table pull (K3 once a batch); train steps with the
+    default trainer (the first calibrates the memory dedup; K3 never runs
+    at attention dropout 0.1, K4 once a step on the dedup); steps at
+    attention dropout 0 on the dedup at factor 0.6 (K3 and its backward
+    once a step); steps at factor 0.01, which fall back (K4 never); one f32
+    train step of the per-instance pull against the table pull from one
+    state; one epoch of the entry script; the profiler's device time of
+    the table pull, its kernel gradient and the updater's attention; then
+    K3 at the embedding layer's eval shape and K4 at the memory dedup's
+    boundary against their plain versions.  Returns the launch counts of
+    each path and the kernels' rows."""
+    import numpy as np
+    from gnnflow_tpu_torch.ops import _build
+    from gnnflow_tpu_torch.ops.apan_kv import apan_table_pull
+    from gnnflow_tpu_torch.ops.attention_fused import \
+        neighborhood_attention_autograd as attention_autograd
+    from gnnflow_tpu_torch.ops.dedup import dedup_instances
+    from gnnflow_tpu_torch.ops.sampling import sample_hops
+    from gnnflow_tpu_torch.scripts import offline_edge_prediction as entry
+    from gnnflow_tpu_torch.train import dedup_cap
+    from gnnflow_tpu_torch.utils import (average_precision_score,
+                                         roc_auc_score)
+    g, dg, ef, train, full = stream["g"], stream["dg"], stream["ef"], \
+        stream["train"], stream["full"]
+    num_nodes = g.max_vertex_id() + 1
+    B, warm, ev_runs, steps, extra = 4000, 3, 10, 20, 5
+    num_all = 3 * B * 11
+    launches = {}
+
+    def counts():
+        return {name: fn.launches for name, fn in kernels.items()}
+
+    def expect(k3=0, k4=0):
+        return {"gru_memory_fused": 0, "gru_memory_fused_bwd": 0,
+                "neighborhood_attention": k3, "sorted_segment_sum": k4}
+
+    def finite(trainer, state):
+        mem = state.memory
+        return all(bool(torch.isfinite(t).all()) for t in (
+            mem.node_memory, mem.mailbox, *trainer.model.parameters()))
+
+    # ---- eval: the default trainer before any train step (table pull) --
+    model, trainer = _apan()
+    state = trainer.init_state(num_nodes, seed=0)
+    ev_batches = _take(full, B, full.dst, warm + ev_runs)
+    for b in ev_batches[:warm]:
+        trainer.eval_step(state, dg, ef, b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(kernels)
+    outs, dev_ms, host_ms = _timed_steps(
+        torch, lambda b: trainer.eval_step(state, dg, ef, b)[1:],
+        ev_batches[warm:])
+    launches["apan_eval"] = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    pos = torch.cat([o[1][:b.num_valid] for o, b in
+                     zip(outs, ev_batches[warm:])]).float().cpu().numpy()
+    neg = torch.cat([o[2][:b.num_valid] for o, b in
+                     zip(outs, ev_batches[warm:])]).float().cpu().numpy()
+    losses = torch.stack([o[0] for o in outs]).cpu()
+    if not (bool(torch.isfinite(losses).all()) and np.isfinite(pos).all()
+            and np.isfinite(neg).all() and len(pos) == ev_runs * B
+            and finite(trainer, state)):
+        raise AssertionError("APAN eval: non-finite values or wrong shapes")
+    _check_launches(launches["apan_eval"], expect(k3=ev_runs),
+                    f"{ev_runs} APAN eval batches")
+    y = np.concatenate([np.ones(len(pos)), np.zeros(len(neg))])
+    sc = np.concatenate([pos, neg])
+    ptr = state.memory.mailbox_ptr
+    ev = dict(batches=ev_runs, batch_size=B,
+              ms_per_batch=statistics.mean(dev_ms),
+              host_ms_per_batch=statistics.mean(host_ms),
+              edges_per_s=B / (statistics.mean(dev_ms) / 1e3),
+              ap=average_precision_score(y, sc), auc=roc_auc_score(y, sc),
+              mean_loss=float(losses.mean()),
+              max_memory_allocated_mib=peak,
+              mailbox_ptr_max=int(ptr.max()),
+              nodes_with_full_mailbox=int((ptr >= 10).sum()),
+              launches=launches["apan_eval"],
+              profile=_profile(torch,
+                               lambda b: trainer.eval_step(state, dg, ef, b),
+                               ev_batches[warm:warm + 3]))
+    _log("apan", path="eval", **ev)
+    # the memory after eval feeds the device timings below
+    ev_model, ev_memory = model, state.memory
+    del trainer, state, outs
+
+    def run_path(name, trainer, state, batches, k3_per_step):
+        """Time ``batches`` train steps and check their launches: K3 and
+        its backward ``k3_per_step`` times a step, K4 once a step on the
+        dedup.  Only the default trainer calibrates (on its first
+        step)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(kernels)
+        bwd0 = attention_autograd.backward_calls
+
+        def step(b):
+            loss = trainer.train_step(state, dg, ef, b)[1]
+            return loss, state.dedup_n_uniq
+        outs, dev_ms, host_ms = _timed_steps(torch, step, batches)
+        launches[name] = counts()
+        att_bwd = attention_autograd.backward_calls - bwd0
+        losses = torch.stack([o[0] for o in outs]).cpu()
+        factor = trainer.dedup_factor
+        cap = dedup_cap(factor, num_all) if factor else None
+        n_uniq = [o[1] for o in outs]
+        fast = [n is not None and n <= cap for n in n_uniq]
+        if not (bool(torch.isfinite(losses).all())
+                and finite(trainer, state)):
+            raise AssertionError(f"APAN {name}: a non-finite value")
+        _check_launches(launches[name],
+                        expect(k3=k3_per_step * len(batches), k4=sum(fast)),
+                        f"{len(batches)} APAN train steps ({name})")
+        if att_bwd != k3_per_step * len(batches):
+            raise AssertionError(f"K3's backward ran {att_bwd} times in "
+                                 f"{len(batches)} APAN steps ({name})")
+        if (trainer.calibration is not None) != (name == "apan_train"):
+            raise AssertionError(f"APAN {name}: calibration "
+                                 f"{trainer.calibration}")
+        # the default trainer's first steps (calibration, warm-up) out
+        skip = warm if name == "apan_train" else 0
+        return dev_ms, host_ms, dict(
+            steps=len(batches), dedup_factor=factor, cap=cap,
+            fast_steps=sum(fast), fallback_steps=len(batches) - sum(fast),
+            n_uniq=n_uniq, ms_per_step=statistics.mean(dev_ms[skip:]),
+            host_ms_per_step=statistics.mean(host_ms[skip:]),
+            fast_ms_per_step=_mean_or_none(
+                [t for t, f in zip(dev_ms[skip:], fast[skip:]) if f]),
+            fallback_ms_per_step=_mean_or_none(
+                [t for t, f in zip(dev_ms[skip:], fast[skip:]) if not f]),
+            attention_backward_calls=att_bwd, losses=losses.tolist(),
+            max_memory_allocated_mib=torch.cuda.max_memory_allocated()
+            / 2 ** 20, launches=launches[name])
+
+    # ---- train, default trainer: the first step calibrates ------------
+    tb = _take(train, B, train.dst, steps + 3)
+    model, trainer = _apan()
+    state = trainer.init_state(num_nodes, seed=0)
+    dev_ms, host_ms, tr = run_path("apan_train", trainer, state, tb[:steps],
+                                   0)
+    cal = trainer.calibration
+    prof = _profile(torch, lambda b: trainer.train_step(state, dg, ef, b),
+                    tb[steps:steps + 3])
+    # the unique fraction of each of the calibration's four probes (the
+    # first batch, and its timestamps shifted to a third, two thirds and
+    # the end of the stream), the worst of which sets the factor
+    t_hi, t_b = float(dg.e_ts.max()), float(tb[0].ts.max())
+    shifts = [np.float32(0.0)] + [np.float32(q * t_hi - t_b)
+                                  for q in (0.33, 0.67, 1.0)]
+    tr.update(
+        calibration=cal, calibrated_uniq_frac=cal["uniq_frac"],
+        calibration_probe_uniq_fracs=[
+            trainer._probe(dg, tb[0].target_nodes, tb[0].ts + d)[1]
+            for d in shifts],
+        dedup_left_off=(None if trainer.dedup_factor else
+                        f"the worst probe's unique fraction "
+                        f"{cal['uniq_frac']} is above the transformer's "
+                        f"0.5 gate"),
+        first_step_ms=dev_ms[0], first_step_host_ms=host_ms[0],
+        edges_per_s=B / (statistics.mean(dev_ms[warm:]) / 1e3),
+        loss_first5=float(np.mean(tr["losses"][:5])),
+        loss_last5=float(np.mean(tr["losses"][-5:])), profile=prof)
+    del tr["losses"]
+    _log("apan", path="train", **tr)
+    busy = prof["device_busy_ms_per_batch"] if isinstance(prof, dict) \
+        else None
+    cal_factor = trainer.dedup_factor
+    del model, trainer, state
+
+    # ---- attention dropout 0 on the dedup at factor 0.6 ---------------
+    model, trainer = _apan(att_dropout=0.0, dedup_factor=0.6)
+    state = trainer.init_state(num_nodes, seed=0)
+    *_, d0 = run_path("apan_dedup_att_dropout0", trainer, state, tb[:extra],
+                      1)
+    if d0["fast_steps"] < 1:
+        raise AssertionError(f"APAN at factor 0.6: no step on the dedup "
+                             f"{d0}")
+    _log("apan", path="dedup_att_dropout0", **d0)
+    del model, trainer, state
+
+    # ---- factor 0.01: every step falls back ----------------------------
+    model, trainer = _apan(dedup_factor=0.01)
+    state = trainer.init_state(num_nodes, seed=0)
+    *_, fb = run_path("apan_fallback", trainer, state, tb[:extra], 0)
+    if fb["fast_steps"]:
+        raise AssertionError(f"APAN at factor 0.01: {fb}")
+    _log("apan", path="fallback", **fb)
+    del model, trainer, state
+
+    # ---- the per-instance pull against the table pull, f32 -----------
+    # one train step of each from one state (parameters, Adam moments,
+    # memory with every slot and cursor, the dropout generator's state)
+    runs = {}
+    for nm, table in (("table", True), ("per_instance", False)):
+        m, t = _apan(compute_dtype=None, dedup_factor=None, apan_table=table)
+        runs[nm] = dict(model=m, tr=t, st=t.init_state(num_nodes, seed=0))
+    for b in tb[:3]:
+        runs["table"]["tr"].train_step(runs["table"]["st"], dg, ef, b)
+    runs["per_instance"]["tr"].train_step(runs["per_instance"]["st"], dg, ef,
+                                          tb[0])
+    _copy_train_state(runs["table"], runs["per_instance"])
+    runs["per_instance"]["st"].dropout_gen.set_state(
+        runs["table"]["st"].dropout_gen.get_state())
+    for r in runs.values():
+        _, loss, _, _ = r["tr"].train_step(r["st"], dg, ef, tb[3])
+        r["trace"] = [dict(
+            loss=loss.cpu(),
+            grad=[q.grad.cpu() for q in r["model"].parameters()],
+            param=[q.detach().cpu().clone()
+                   for q in r["model"].parameters()],
+            memory=torch.cat([r["st"].memory.node_memory,
+                              r["st"].memory.mailbox.flatten(1)], 1).cpu())]
+    pnames = [nm for nm, _ in runs["table"]["model"].named_parameters()]
+    errs, worst = _trace_errs(runs["table"]["trace"],
+                              runs["per_instance"]["trace"], pnames)
+    tt = dict(loss=1e-4, grad=1e-4, param=1e-5, memory=1e-4)
+    same_ts = all(bool(torch.equal(getattr(runs["table"]["st"].memory, f),
+                                   getattr(runs["per_instance"]["st"].memory,
+                                           f)))
+                  for f in ("node_memory_ts", "mailbox_ts", "mailbox_ptr"))
+    tvp = dict(dtype="float32", step=4,
+               apan_table={nm: r["tr"].apan_table for nm, r in runs.items()},
+               per_step_max_err=errs,
+               worst_grad_parameter=worst, tol=tt,
+               timestamps_and_cursors_equal=same_ts)
+    _log("apan", path="table_vs_per_instance", **tvp)
+    if not (all(max(errs[k]) <= tt[k] for k in tt) and same_ts):
+        raise AssertionError(f"APAN table vs per-instance pull: {tvp}")
+    del runs
+
+    # ---- the entry script, one epoch -----------------------------------
+    _reset(kernels)
+    t0 = time.perf_counter()
+    out = entry.main(["--model", "APAN", "--data", "SYNTHETIC", "--epoch",
+                      "1"], checkpoint_path=os.path.join(
+                          _build.BUILD_DIR, "APAN_torch.ckpt"))
+    torch.cuda.synchronize()
+    launches["apan_entry"] = counts()
+    aps = out["val_ap"] + [out["test_ap"]]
+    if not all(0.0 < a <= 1.0 for a in aps) \
+            or launches["apan_entry"]["neighborhood_attention"] == 0:
+        raise AssertionError(f"APAN entry: {out}, {launches['apan_entry']}")
+    en = dict(seconds=time.perf_counter() - t0,
+              launches=launches["apan_entry"], **out)
+    _log("apan", path="entry", **en)
+
+    # ---- the table pull, its kernel gradient and the attention --------
+    # on the memory the eval batches left and a mid-stream batch's
+    # instances: all 132,000 (eval, the per-step path without the dedup)
+    # and the dedup's unique pairs at the calibrated factor (or 0.6)
+    mid = _take(full, B, full.dst, PROBE_BATCH)[-1]
+    m = sample_hops(dg, torch.from_numpy(mid.target_nodes).cuda(),
+                    torch.from_numpy(mid.ts).cuda(), fanouts=[10])[0][0]
+    L = m.num_all
+    fac = cal_factor or 0.6
+    cap = dedup_cap(fac, L)
+    uniq_nid, uniq_ts, _, n_uniq, _, seg = dedup_instances(
+        m.all_nodes(), m.all_ts(), m.all_mask(), cap)
+    if int(n_uniq) > cap:                  # the tightest cap that holds it
+        cap = dedup_cap(int(n_uniq) / L, L)
+        uniq_nid, uniq_ts, _, n_uniq, _, seg = dedup_instances(
+            m.all_nodes(), m.all_ts(), m.all_mask(), cap)
+    upd = ev_model.updater
+    mem = ev_memory
+    dr = upd.dim_raw
+    kern = upd.w_kv.kernel.detach()[:dr].clone().requires_grad_()
+    parts = {}
+    for at, nids in (("instances", m.all_nodes()), ("dedup", uniq_nid)):
+        nids = nids.clamp(0, mem.num_nodes - 1)
+        pull = (mem.node_memory, mem.mailbox, mem.mailbox_ts)
+        fwd = device_ms(torch, [lambda: apan_table_pull(
+            *pull, kern.detach(), nids, torch.bfloat16)], iters=6)
+        mem_i, kv_i, _ = apan_table_pull(*pull, kern, nids, torch.bfloat16)
+        d_kv = torch.randn_like(kv_i)
+        dw = device_ms(torch, [lambda: torch.autograd.grad(
+            kv_i, kern, d_kv, retain_graph=True)], iters=6)
+        kv_r = kv_i.detach().requires_grad_()
+        d_out = torch.randn(mem_i.shape, device="cuda")
+        att_fwd = device_ms(torch, [lambda: upd.attend(mem_i.detach(),
+                                                       kv_r)], iters=6)
+
+        def att_both():
+            torch.autograd.backward(upd.attend(mem_i.detach(), kv_r), d_out)
+        att = device_ms(torch, [att_both], iters=6)
+        parts[at] = dict(rows=int(nids.shape[0]), table_pull_fwd_ms=fwd,
+                         table_pull_dw_ms=dw, attention_fwd_ms=att_fwd,
+                         attention_fwd_bwd_ms=att)
+        del mem_i, kv_i, d_kv, kv_r
+    parts.update(
+        note="profiler device time; bf16 compute, S 10, dim_raw 372, "
+             "K/V width 200; table pull over 10,984 nodes x 10 slots",
+        default_train_device_busy_ms_per_step=busy, dedup_factor=fac)
+    _log("apan", path="updater_parts", **parts)
+    del ev_model, ev_memory, upd, kern
+
+    # ---- K3 at l0h0's eval shape, K4 at the memory dedup's boundary --
+    w = dict(device=torch.device("cuda"),
+             generator=torch.Generator(device="cuda").manual_seed(1))
+    mask = m.nbr_mask.contiguous()
+    k3 = _kernel_k3(torch, w, mask, torch.bfloat16, 2 ** -6, 1e-5)
+    _log("kernels", kernel="neighborhood_attention", dtype="bfloat16",
+         at="APAN l0h0 eval", shape=list(mask.shape) + [2, 50], **k3)
+    k4 = _k4_check(torch, w, seg, cap, int(n_uniq), 100)
+    _log("kernels", kernel="sorted_segment_sum", dtype="float32",
+         at="APAN memory dedup", shape=[L, 100, cap], **k4)
+    rows = {"neighborhood_attention": dict(
+                shape=list(mask.shape) + [2, 50], layer="l0h0",
+                batch=PROBE_BATCH,
+                **{k: v for k, v in k3.items() if k != "tol"}),
+            "sorted_segment_sum": dict(
+                shape=[L, 100], cap=cap, factor=fac, batch=PROBE_BATCH,
+                **{k: v for k, v in k4.items() if k != "tol"})}
+    return dict(launches=launches, rows=rows, eval=ev, train=tr,
+                dedup_att_dropout0=d0, fallback=fb,
+                table_vs_per_instance=tvp, entry=en, updater_parts=parts)
+
+
 def _plain_attention_ms(torch, model, rec):
     """Device time of the plain attention with its dropout, forward and
     backward, on the inputs each layer last gave it (``rec``), replayed
@@ -1706,7 +2062,8 @@ def _copy_train_state(src, dst) -> None:
         for k, v in src["st"].optimizer.state[p_s].items():
             dst["st"].optimizer.state[p_d][k].copy_(v)
     if src["st"].memory is not None:
-        for f in ("node_memory", "node_memory_ts", "mailbox", "mailbox_ts"):
+        for f in ("node_memory", "node_memory_ts", "mailbox", "mailbox_ts",
+                  "mailbox_ptr"):
             getattr(dst["st"].memory, f).copy_(getattr(src["st"].memory, f))
     dst["model"].cast_weights()
 
@@ -1905,6 +2262,8 @@ def phase_self_check(torch, card: str = "cuda"):
                                            num_nodes, failed)
     out["dysat_float32"] = _self_check_dysat(torch, card, full, graphs, efs,
                                              num_nodes, failed)
+    out["apan_float32"] = _self_check_apan(torch, card, full, graphs, efs,
+                                           num_nodes, failed)
     _log("self_check", eval_batches=4, batch_size=500, **out)
     if failed:
         raise AssertionError(f"CPU vs card: {failed} beyond tolerance")
@@ -2126,6 +2485,147 @@ def _self_check_dysat(torch, card, full, graphs, efs, num_nodes, failed):
                                worst_grad_parameter=pert_worst)))
 
 
+def _self_check_apan(torch, card, full, graphs, efs, num_nodes, failed):
+    """APAN in f32 (widths of ``_apan``, dropout 0), CPU (plain versions)
+    against card (kernels): eval logits and memory over 4 batches, then 4
+    train steps on the table pull and 4 on the memory dedup at factor 1.0
+    (every step fits), each held from one state: before each step the
+    card takes the CPU's parameters, Adam moments and memory, every mail
+    slot and cursor included.  Losses, parameters and memory after each
+    step within the TGN f32 check's tolerances; timestamps and cursors
+    equal; K4 once a step on the card's dedup.
+
+    The train runs start from the memory that two eval batches leave.
+    From an empty memory every slot of an instance holds the same mail, so
+    its softmax over the slots is uniform whatever the query, and ``w_q``'s
+    gradient is zero but for rounding, in which the two sides share no
+    digit.  ``edge_predictor.out_fc.bias``'s gradient is the sum of the
+    rows' ``(sigmoid(pos) - 1) / n`` and ``sigmoid(neg) / n``, small next
+    to the sum of their magnitudes, which is reported beside as its
+    cancellation."""
+    from gnnflow_tpu_torch.data import DstRandEdgeSampler, get_batches
+    from gnnflow_tpu_torch.models.dgnn import DGNN
+    from gnnflow_tpu_torch.ops.segment_sum import sorted_segment_sum
+    from gnnflow_tpu_torch.train import Trainer
+    cfg = dict(dim_node=0, dim_edge=172, dim_time=100, dim_embed=100,
+               num_layers=1, num_snapshots=1, att_head=2, dropout=0.0,
+               att_dropout=0.0, use_memory=True, dim_memory=100,
+               memory_updater="transformer", mailbox_slots=10)
+    tol = 1e-4
+    tt = dict(loss=1e-4, grad=1e-4, param=1e-5, memory=1e-4)
+    exact = ("node_memory_ts", "mailbox_ts", "mailbox_ptr")
+
+    def run(device, dedup_factor):
+        model = DGNN(**cfg, seed=1, device=device)
+        tr = Trainer(model, fanouts=[10], lr=1e-4, dedup_factor=dedup_factor,
+                     device=device)
+        return dict(model=model, tr=tr, st=tr.init_state(num_nodes),
+                    device=device, trace=[], fast=0)
+
+    def memory(st):
+        return torch.cat([st.memory.node_memory,
+                          st.memory.mailbox.flatten(1)], 1).cpu()
+
+    ev = {}
+    for device in ("cpu", card):
+        r = run(device, None)
+        logits, mems = [], []
+        neg = DstRandEdgeSampler(full.dst, seed=3)
+        for i, b in enumerate(get_batches(full, 500, neg)):
+            if i == 4:
+                break
+            _, _, p, n = r["tr"].eval_step(r["st"], graphs[device],
+                                           efs[device], b)
+            logits.append(torch.cat([p, n]).float().cpu())
+            mems.append(memory(r["st"]))
+        ev[device] = (logits, mems, [getattr(r["st"].memory, f).cpu()
+                                     for f in exact])
+    (cl, cm, cx), (gl, gm, gx) = ev["cpu"], ev[card]
+    err_l = max((a - b).abs().max().item() for a, b in zip(cl, gl))
+    err_m = max((a - b).abs().max().item() for a, b in zip(cm, gm))
+    ev_exact = all(bool(torch.equal(a, b)) for a, b in zip(cx, gx))
+    if not (err_l <= tol and err_m <= tol and ev_exact):
+        failed.append("apan eval float32")
+
+    names = ("cpu", "card", "cpu_dedup", "card_dedup")
+    runs = {nm: run("cpu" if nm.startswith("cpu") else card,
+                    1.0 if "dedup" in nm else None) for nm in names}
+    held = {"card": "cpu", "card_dedup": "cpu_dedup"}
+    neg = DstRandEdgeSampler(full.dst, seed=4)
+    batches = get_batches(full, 500, neg)
+    for b in [next(batches) for _ in range(2)]:
+        for nm in ("cpu", "cpu_dedup"):
+            r = runs[nm]
+            r["tr"].eval_step(r["st"], graphs["cpu"], efs["cpu"], b)
+    k4_before = sorted_segment_sum.launches
+    steps, same = 4, []
+    for i, b in enumerate(batches):
+        if i == steps:
+            break
+        for dst, src in held.items():
+            if i:
+                _copy_train_state(runs[src], runs[dst])
+            else:            # no Adam state yet: the memory alone
+                for f in ("node_memory", "node_memory_ts", "mailbox",
+                          "mailbox_ts", "mailbox_ptr"):
+                    getattr(runs[dst]["st"].memory, f).copy_(
+                        getattr(runs[src]["st"].memory, f))
+        for nm in names:
+            r = runs[nm]
+            _, loss, pos, neg = r["tr"].train_step(
+                r["st"], graphs[r["device"]], efs[r["device"]], b)
+            # |terms| of out_fc.bias's gradient over the gradient
+            terms = ((1 - torch.sigmoid(pos)).sum()
+                     + torch.sigmoid(neg).sum()) / pos.shape[0]
+            r.setdefault("cancellation", []).append(
+                (terms / r["model"].edge_predictor.out_fc.bias.grad.abs()
+                 .sum()).item())
+            r["fast"] += _fast_steps(r["tr"], r["st"], 1500 * 11)
+            r["trace"].append(dict(
+                loss=loss.float().cpu(),
+                grad=[q.grad.float().cpu() for q in r["model"].parameters()],
+                param=[q.detach().cpu().clone()
+                       for q in r["model"].parameters()],
+                memory=memory(r["st"])))
+        same.append(all(bool(torch.equal(
+            getattr(runs[a]["st"].memory, f).cpu(),
+            getattr(runs[c]["st"].memory, f).cpu()))
+            for a, c in (("cpu", "card"), ("cpu_dedup", "card_dedup"))
+            for f in exact))
+    k4 = sorted_segment_sum.launches - k4_before
+    pnames = [nm for nm, _ in runs["cpu"]["model"].named_parameters()]
+    out = {}
+    for c, a in held.items():
+        errs, worst = _trace_errs(runs[a]["trace"], runs[c]["trace"], pnames)
+        bias = pnames.index("edge_predictor.out_fc.bias")
+        out[c] = dict(per_step_max_err=errs, worst_grad_parameter=worst,
+                      fast_steps=runs[c]["fast"],
+                      out_fc_bias_grad_rel_err=[
+                          _rel(y["grad"][bias], x["grad"][bias])
+                          for x, y in zip(runs[a]["trace"],
+                                          runs[c]["trace"])],
+                      out_fc_bias_grad_cancellation=runs[a]["cancellation"])
+        if not all(max(errs[k]) <= tt[k] for k in tt):
+            failed.append(f"apan train float32 ({c})")
+    fin = all(bool(torch.isfinite(x).all())
+              for nm in ("card", "card_dedup") for s_ in runs[nm]["trace"]
+              for x in s_["grad"] + s_["param"] + [s_["memory"]])
+    ptr_max = int(runs["card"]["st"].memory.mailbox_ptr.max())
+    if not (all(same) and fin and runs["cpu_dedup"]["fast"] == steps
+            and runs["card_dedup"]["fast"] == steps
+            and k4 == (steps if card != "cpu" else 0)):
+        failed.append("apan train float32 (timestamps, cursors, dedup)")
+    return dict(eval=dict(batches=4, logits_max_abs_err=err_l,
+                          memory_max_abs_err=err_m,
+                          timestamps_and_cursors_equal=ev_exact, tol=tol),
+                train=dict(steps=steps, state_synced_before_each_step=True,
+                           after_eval_batches=2, dedup_factor=1.0, tol=tt,
+                           **out,
+                           timestamps_and_cursors_equal=same,
+                           mailbox_ptr_max=ptr_max, k4_launches=k4,
+                           finite=fin))
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -2149,19 +2649,22 @@ def main() -> int:
     phase_self_check(torch)
     tg = phase_tgat(torch, kernels, stream)
     dy = phase_dysat(torch, kernels, stream)
+    ap = phase_apan(torch, kernels, stream)
     # launches on each main path, counted from 0 just before it: TGN eval
     # batches, train steps at att_dropout 0.2 and at 0, dedup train steps,
     # fallback steps and eval batches, the entry script's two epochs; TGAT
     # eval batches, default train steps, steps at att_dropout 0 and factor
     # 0.5, steps at factor 0.01; DySAT eval batches, default train steps,
     # steps at att_dropout 0 on the snapshot dedup, on the block
-    # compaction, at factor 0.01, the entry script's epoch
+    # compaction, at factor 0.01, the entry script's epoch; APAN eval
+    # batches, default train steps, steps at att_dropout 0 on the memory
+    # dedup, at factor 0.01, the entry script's epoch
     paths = {"eval": sl["launches"], "train": tr["launches"],
              "train_att_dropout0": tr["att_dropout0"]["launches"],
              "dedup_train": dd["launches"],
              "dedup_fallback": dd["fallback"]["launches"],
              "dedup_eval": dd["eval"]["launches"], "entry": en["launches"],
-             **tg["launches"], **dy["launches"]}
+             **tg["launches"], **dy["launches"], **ap["launches"]}
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())
@@ -2169,6 +2672,8 @@ def main() -> int:
             row["tgat"] = tg["rows"][row["name"]]
         if row["name"] in dy["rows"]:
             row["dysat"] = dy["rows"][row["name"]]
+        if row["name"] in ap["rows"]:
+            row["apan"] = ap["rows"][row["name"]]
     print(json.dumps({"kernels": rows, "card": dev["smi"],
                       "profiler_empty": PROFILER_EMPTY}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
-"""DGNN for the TGN, TGAT and DySAT configurations.
+"""DGNN for the TGN, TGAT, DySAT and APAN configurations.
 
 Counterpart of ``gnnflow_tpu/models/dgnn.py:31-202`` restricted to what
-these three run: an optional GRU memory updater (TGN, one snapshot), a
+these four run: an optional memory updater (one snapshot; the GRU of TGN
+or the transformer of APAN, over one mail slot or several), a
 ``num_layers x num_snapshots`` grid of temporal attention layers
 ``l{l}h{h}``, the snapshot combiner (DySAT: an RNN over the snapshots'
 embeddings) and the edge predictor, for inference and training.  Between
@@ -20,7 +21,8 @@ import torch
 from torch import nn
 
 from gnnflow_tpu_torch.common import MFG, resolve_device
-from gnnflow_tpu_torch.models.memory import GRUMemoryUpdater
+from gnnflow_tpu_torch.models.memory import (GRUMemoryUpdater,
+                                             TransformerMemoryUpdater)
 from gnnflow_tpu_torch.models.modules import (EdgePredictor, Linear,
                                               TemporalAttentionLayer)
 from gnnflow_tpu_torch.ops.segment_sum import expand_blocks, expand_rows_spec
@@ -41,8 +43,10 @@ class SimpleRNNCell(nn.Module):
 
 class DGNN(nn.Module):
     """Dynamic GNN over padded MFGs (TGN: memory and one attention layer;
-    TGAT: attention layers without memory or node input; DySAT: the same
-    over S snapshots, without time encoding, and the combiner).
+    APAN: the same with the transformer memory updater and a mailbox of
+    ``mailbox_slots`` slots; TGAT: attention layers without memory or node
+    input; DySAT: the same over S snapshots, without time encoding, and
+    the combiner).
 
     Weights are drawn from ``torch.Generator().manual_seed(seed)`` on the
     CPU (so every device gets the same weights) and moved to ``device``.
@@ -61,12 +65,13 @@ class DGNN(nn.Module):
         if use_memory and num_snapshots != 1:
             raise ValueError("memory is not supported for multiple "
                              "snapshots (dgnn.py:72-74)")
+        if memory_updater not in ("gru", "transformer"):
+            raise ValueError(f"unknown memory updater {memory_updater!r}")
+        if mailbox_slots < 1:
+            raise ValueError("mailbox_slots must be at least 1")
         unsupported = {
             "memory with more than one layer":
                 (use_memory and num_layers != 1, "modules to port, item 5"),
-            "the transformer memory updater (APAN)":
-                (memory_updater != "gru", "modules to port, item 9"),
-            "mailbox_slots > 1": (mailbox_slots != 1, "modules to port, item 9"),
             "node features (dim_node > 0)":
                 (dim_node != 0, "modules to port, item 10"),
         }
@@ -86,13 +91,17 @@ class DGNN(nn.Module):
         self.dim_node, self.dim_edge = dim_node, dim_edge
         self.use_memory = use_memory
         self.dim_memory = dim_memory if use_memory else None
+        self.memory_updater, self.mailbox_slots = memory_updater, mailbox_slots
         self.num_layers, self.num_snapshots = num_layers, num_snapshots
         self.compute_dtype = compute_dtype
         self.dropout, self.att_dropout = dropout, att_dropout
         gen = torch.Generator().manual_seed(seed)
-        if use_memory:
+        if use_memory and memory_updater == "gru":
             self.updater = GRUMemoryUpdater(dim_edge, dim_time, dim_memory,
                                             gen, cd)
+        elif use_memory:
+            self.updater = TransformerMemoryUpdater(
+                dim_edge, dim_time, dim_memory, att_head, gen, cd)
         dim_in = dim_memory if use_memory else dim_node
         self.layers = nn.ModuleDict({f"l{l}h{h}": TemporalAttentionLayer(
             dim_in if l == 0 else dim_embed, dim_edge, dim_time, dim_embed,
@@ -123,9 +132,10 @@ class DGNN(nn.Module):
         (deepest) layer first; ``edge_feats[l][h]`` its [B, F, dim_edge]
         edge features; ``mem_input`` the pulled memory rows of the
         innermost MFG's nodes
-        (:func:`~gnnflow_tpu_torch.models.memory.prepare_input`; None
-        without memory).  ``expansions[l]``, where given and not None,
-        expands layer ``l``'s compact output to layer ``l + 1``'s
+        (:func:`~gnnflow_tpu_torch.models.memory.prepare_input`), or the
+        raw state or the dedup's compact input that the updater pulls from
+        itself (None without memory).  ``expansions[l]``, where given and
+        not None, expands layer ``l``'s compact output to layer ``l + 1``'s
         instances: a ``("rows", inv, sidx, rank_sorted)`` spec (stacked
         [S, L] per snapshot, or one) or a ``("blocks", rank [S, B], cap,
         fanout)`` spec.  ``train=True`` applies dropout, drawn from

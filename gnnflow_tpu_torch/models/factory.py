@@ -2,7 +2,7 @@
 config-registry entry.
 
 Counterpart of ``gnnflow_tpu/models/factory.py:build_model`` for TGN,
-TGAT and DySAT.  The other registry models raise ``NotImplementedError``
+TGAT, DySAT and APAN.  The other registry models raise ``NotImplementedError``
 naming the ROADMAP.md item that brings them, and so do configs the port
 does not take yet (static sampling, more than one negative per edge).
 """
@@ -11,8 +11,7 @@ from __future__ import annotations
 from gnnflow_tpu_torch.models.dgnn import DGNN
 
 # registry models still to port -> their ROADMAP.md item
-UNPORTED_MODELS = {"apan": "item 9",
-                   "graphsage": "item 10", "gat": "item 10"}
+UNPORTED_MODELS = {"graphsage": "item 10", "gat": "item 10"}
 
 
 def build_model(name: str, model_config: dict, dim_node: int, dim_edge: int,
@@ -24,7 +23,7 @@ def build_model(name: str, model_config: dict, dim_node: int, dim_edge: int,
         raise NotImplementedError(
             f"{name} is not ported yet (ROADMAP.md, modules to port, "
             f"{UNPORTED_MODELS[name]})")
-    if name not in ("tgn", "tgat", "dysat"):
+    if name not in ("tgn", "tgat", "dysat", "apan"):
         raise ValueError(f"unknown model {name!r}")
     cfg = dict(model_config)
     unported = {"is_static": (False, "item 10"),

@@ -1,16 +1,21 @@
-"""TGN node memory and mailbox, the GRU memory updater and write-back.
+"""Node memory and mailbox, the GRU (TGN) and transformer (APAN) memory
+updaters and the write-back.
 
-Counterpart of ``gnnflow_tpu/models/memory.py`` for one mail slot and f32
-storage: ``MemoryState`` and ``init_memory`` (``:50-208``), reset, backup
-and restore (``:207-283``), ``DedupMemoryInput`` (``:286-303``),
-``prepare_input_at`` and ``prepare_input`` with the meaning of
-``prepare_input_bf16`` (``:314-433``), ``GRUMemoryUpdater`` on the
-per-instance and the dedup path (``:436-590``) and ``update_mem_mail``
-(``:756-833``).
+Counterpart of ``gnnflow_tpu/models/memory.py`` for f32 storage:
+``MemoryState`` with one mail slot or ``S`` of them (APAN's circular
+mailbox) and ``init_memory`` (``:50-208``), reset, backup and restore
+(``:207-283``), ``DedupMemoryInput`` and ``RawMemoryInput``
+(``:286-311``), ``prepare_input_at`` and ``prepare_input`` with the
+meaning of ``prepare_input_bf16`` (``:314-433``), ``GRUMemoryUpdater`` on
+the per-instance and the dedup path (``:436-590``),
+``TransformerMemoryUpdater`` (``:593-753``) and ``update_mem_mail`` with
+the circular slot write (``:756-875``).
 
 Unlike the JAX package, which builds a new state array every step, the
 port updates the memory tensors **in place** (:func:`update_mem_mail`,
-:func:`reset_memory`).
+:func:`reset_memory`).  The JAX package's row tables, their 128-lane
+pads and its split per-slot mail table are TPU layout: here the four
+logical tensors and the slot cursor are plain row-major tensors.
 
 Kept reference quirk: mailbox timestamps are ``last_updated_ts[:2B]`` in
 block order (src block, then dst block) while mails and their node ids are
@@ -18,6 +23,7 @@ interleaved ``[s0, d0, s1, d1, ...]``.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, fields
 from typing import Dict, Optional, Tuple, Union
 
@@ -25,19 +31,25 @@ import torch
 from torch import nn
 
 from gnnflow_tpu_torch.common import MFG
-from gnnflow_tpu_torch.models.modules import FusedGRUCell, TimeEncode
+from gnnflow_tpu_torch.models.modules import (FusedGRUCell, MultiLinear,
+                                              TimeEncode)
+from gnnflow_tpu_torch.ops.apan_kv import apan_table_pull
 from gnnflow_tpu_torch.ops.segment import unique_keep_last_mask
 from gnnflow_tpu_torch.ops.segment_sum import expand_compact
 
 
 @dataclass
 class MemoryState:
-    """Per-node memory state: the reference's four tensors, f32."""
+    """Per-node memory state: the reference's four tensors, f32, with one
+    mail slot or ``S > 1`` (APAN's circular mailbox), and the per-node
+    write cursor of the slots (``memory.py:58-66``; int64, always 0 with
+    one slot)."""
 
     node_memory: torch.Tensor     # [N, dim_memory]
     node_memory_ts: torch.Tensor  # [N]
-    mailbox: torch.Tensor         # [N, dim_raw], dim_raw = 2*dm + dim_edge
-    mailbox_ts: torch.Tensor      # [N]
+    mailbox: torch.Tensor         # [N, dim_raw] or [N, S, dim_raw]
+    mailbox_ts: torch.Tensor      # [N] or [N, S]
+    mailbox_ptr: torch.Tensor     # [N] int64: the slot written next, mod S
 
     @property
     def num_nodes(self) -> int:
@@ -49,17 +61,25 @@ class MemoryState:
 
     @property
     def dim_raw(self) -> int:
-        return self.mailbox.shape[1]
+        """2 * dim_memory + dim_edge."""
+        return self.mailbox.shape[-1]
+
+    @property
+    def mailbox_slots(self) -> int:
+        return 1 if self.mailbox.dim() == 2 else self.mailbox.shape[1]
 
 
 def init_memory(num_nodes: int, dim_memory: int, dim_edge: int,
-                device) -> MemoryState:
+                device, mailbox_slots: int = 1) -> MemoryState:
     dim_raw = 2 * dim_memory + dim_edge
     z = dict(dtype=torch.float32, device=device)
+    slots = (mailbox_slots,) if mailbox_slots > 1 else ()
     return MemoryState(torch.zeros(num_nodes, dim_memory, **z),
                        torch.zeros(num_nodes, **z),
-                       torch.zeros(num_nodes, dim_raw, **z),
-                       torch.zeros(num_nodes, **z))
+                       torch.zeros(num_nodes, *slots, dim_raw, **z),
+                       torch.zeros(num_nodes, *slots, **z),
+                       torch.zeros(num_nodes, dtype=torch.long,
+                                   device=device))
 
 
 def reset_memory(state: MemoryState) -> MemoryState:
@@ -78,9 +98,14 @@ def backup_memory(state: MemoryState) -> Dict[str, torch.Tensor]:
 
 def restore_memory(backup: Dict[str, torch.Tensor], device) -> MemoryState:
     """A :class:`MemoryState` on ``device`` from :func:`backup_memory`'s
-    snapshot (``memory.py:236-283``, one slot, f32 storage)."""
-    return MemoryState(**{f.name: backup[f.name].to(device, torch.float32)
-                          for f in fields(MemoryState)})
+    snapshot (``memory.py:236-283``, f32 storage); a snapshot without
+    ``mailbox_ptr`` restores the cursor as 0, as there."""
+    n = backup["node_memory"].shape[0]
+    ptr = backup.get("mailbox_ptr", torch.zeros(n))
+    return MemoryState(
+        **{f.name: backup[f.name].to(device, torch.float32)
+           for f in fields(MemoryState) if f.name != "mailbox_ptr"},
+        mailbox_ptr=ptr.to(device, torch.long))
 
 
 @dataclass
@@ -98,10 +123,22 @@ class DedupMemoryInput:
     rank_sorted: torch.Tensor    # [L] int32 non-decreasing slots
 
 
+@dataclass
+class RawMemoryInput:
+    """The raw state as the updater's input (``memory.py:306-311``): the
+    transformer updater's table path pulls its rows itself
+    (:func:`~gnnflow_tpu_torch.ops.apan_kv.apan_table_pull`)."""
+
+    state: MemoryState
+
+
 def prepare_input_at(state: MemoryState, nids: torch.Tensor,
                      dtype: torch.dtype = torch.float32
                      ) -> Dict[str, torch.Tensor]:
-    """Pull memory rows for ``nids`` (ids clip into the table).
+    """Pull memory rows for ``nids`` (ids clip into the table): ``mem``,
+    ``mem_ts``, ``mail`` ([L, dim_raw], or [L, S, dim_raw] with S slots),
+    ``mail_ts`` ([L] or [L, S]) and, with S slots, the cursor
+    ``mail_ptr`` [L].
 
     ``dtype=torch.bfloat16`` is what ``prepare_input_bf16`` means: memory
     and mail values round to bf16 (the node tables are cast once, then
@@ -111,8 +148,11 @@ def prepare_input_at(state: MemoryState, nids: torch.Tensor,
     mem, mail = state.node_memory, state.mailbox
     if dtype != torch.float32:
         mem, mail = mem.to(dtype), mail.to(dtype)
-    return {"mem": mem[nids], "mem_ts": state.node_memory_ts[nids],
-            "mail": mail[nids]}
+    out = {"mem": mem[nids], "mem_ts": state.node_memory_ts[nids],
+           "mail": mail[nids], "mail_ts": state.mailbox_ts[nids]}
+    if state.mailbox_slots > 1:
+        out["mail_ptr"] = state.mailbox_ptr[nids]
+    return out
 
 
 def prepare_input(state: MemoryState, mfg: MFG,
@@ -129,6 +169,8 @@ class GRUMemoryUpdater(nn.Module):
     the fused kernel, over every MFG instance, or, given a
     :class:`DedupMemoryInput`, over the compact rows, expanded back to the
     instances by :func:`~gnnflow_tpu_torch.ops.segment_sum.expand_compact`.
+    With S mail slots the GRU reads the latest mail, slot ``(ptr - 1) mod
+    S`` (``memory.py:520-526``).
 
     Returns ``(h, last_updated)``; ``last_updated`` holds the node ids,
     updated memory and timestamps of the dst rows for write-back, detached
@@ -157,12 +199,129 @@ class GRUMemoryUpdater(nn.Module):
             # (nid 0, ts 0) included, as there
             di = mem_input
             pulled = prepare_input_at(di.state, di.uniq_nids)
-            updated = self.cell(pulled["mem"], pulled["mail"],
+            updated = self.cell(pulled["mem"], _latest_mail(pulled),
                                 di.uniq_ts - pulled["mem_ts"], self.time_enc)
             h = expand_compact(updated, di.inv, di.sidx, di.rank_sorted)
         else:
-            h = self.cell(mem_input["mem"], mem_input["mail"],
+            h = self.cell(mem_input["mem"], _latest_mail(mem_input),
                           all_ts - mem_input["mem_ts"], self.time_enc)
+        last_updated = {
+            "last_updated_nid": mfg.root_nids,
+            "last_updated_memory": h[:b].detach(),
+            "last_updated_ts": all_ts[:b],
+        }
+        return h, last_updated
+
+
+def _latest_mail(pulled: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The pulled mail, or with S slots the latest one, slot ``(ptr - 1)
+    mod S``."""
+    mail = pulled["mail"]
+    if mail.dim() == 2:
+        return mail
+    slot = (pulled["mail_ptr"] - 1) % mail.shape[1]
+    return mail[torch.arange(mail.shape[0], device=mail.device), slot]
+
+
+class TransformerMemoryUpdater(nn.Module):
+    """APAN's memory updater (``memory.py:593-753``): each instance's memory
+    queries its node's S mail slots in one attention step,
+    ``LayerNorm(mem + Σ_S softmax_S(q·k / sqrt(dh)) v)`` per head, with
+    ``q = w_q(mem)`` and ``[k | v] = w_kv([mail | TimeEncode(ts -
+    mail_ts)])``.
+
+    Three inputs: :class:`RawMemoryInput` (the table path, the trainer's
+    default) projects the mail part of K/V once per (node, slot) and
+    gathers it (:func:`~gnnflow_tpu_torch.ops.apan_kv.apan_table_pull`),
+    then adds the time part and the bias in the compute dtype; a dict of
+    pulled rows (:func:`prepare_input_at`) projects per instance as a sum
+    of per-part products; a :class:`DedupMemoryInput` runs the table path
+    over the unique (nid, ts) pairs and expands the result back to the
+    instances with :func:`~gnnflow_tpu_torch.ops.segment_sum.expand_compact`
+    (whose backward is K4).  Scores are summed over each head in f32 and
+    the softmax over S is f32; LayerNorm (eps 1e-5) adds the memory as it
+    was pulled, in the compute dtype on the table path.
+
+    Reference behaviours kept: a slot never written (``mail_ts`` 0) is
+    not masked out of the softmax, and the updater applies no dropout,
+    even in training: the JAX ``DGNN`` calls it without ``train``
+    (``dgnn.py:158-159``), so its ``nn.Dropout`` never fires.
+
+    Returns ``(h, last_updated)`` as :class:`GRUMemoryUpdater` does."""
+
+    def __init__(self, dim_edge: int, dim_time: int, dim_memory: int,
+                 att_head: int, gen: torch.Generator,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if dim_time <= 0:
+            raise NotImplementedError(
+                "a memory updater without time encoding is not ported yet "
+                "(ROADMAP.md, modules to port, item 14)")
+        if dim_memory % att_head:
+            raise ValueError("dim_memory must be a multiple of att_head")
+        self.dim_raw = 2 * dim_memory + dim_edge
+        self.dim_memory, self.att_head = dim_memory, att_head
+        self.compute_dtype = compute_dtype
+        self.w_kv = MultiLinear(self.dim_raw + dim_time, 2 * dim_memory, gen,
+                                compute_dtype)
+        self.w_q = MultiLinear(dim_memory, dim_memory, gen, compute_dtype)
+        self.time_enc = TimeEncode(dim_time)
+        self.layer_norm = nn.LayerNorm(dim_memory, eps=1e-5)
+
+    def _table_kv(self, state: MemoryState, nids: torch.Tensor,
+                  ts: torch.Tensor):
+        """``(mem, kv)`` of the table path for ``nids`` at ``ts``
+        (``memory.py:615-661``)."""
+        cd = self.compute_dtype or torch.float32
+        mails, mail_ts = state.mailbox, state.mailbox_ts
+        if state.mailbox_slots == 1:
+            mails, mail_ts = mails[:, None], mail_ts[:, None]
+        dr, kernel = self.dim_raw, self.w_kv.kernel
+        mem, kv, mail_ts = apan_table_pull(
+            state.node_memory, mails, mail_ts, kernel[:dr],
+            nids.clamp(0, state.num_nodes - 1), self.compute_dtype)
+        tf = self.time_enc(ts[:, None] - mail_ts)           # [n, S, dt]
+        kv = kv + tf.to(cd) @ kernel[dr:].to(cd)
+        return mem, kv + self.w_kv.bias.to(cd)
+
+    def attend(self, mem: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
+        """The attention step over the slots (``memory.py:684-708``):
+        ``mem`` [n, dm] and ``kv`` [n, S, 2·dm] in the compute dtype;
+        returns the updated memory [n, dm], f32."""
+        n, S = kv.shape[:2]
+        D, H = self.dim_memory, self.att_head
+        dh = D // H
+        q = self.w_q([mem])
+        qk = q[:, None, :] * kv[..., :D]                     # [n, S, D]
+        att = qk.float().reshape(n, S, H, dh).sum(-1) / math.sqrt(dh)
+        att = torch.softmax(att, dim=1)                      # over the slots
+        v = kv[..., D:].reshape(n, S, H, dh)
+        upd = (v * att.to(v.dtype)[..., None]).sum(1).reshape(n, D)
+        return self.layer_norm(mem.float() + upd.float())
+
+    def forward(self, mfg: MFG,
+                mem_input: Union[Dict[str, torch.Tensor], RawMemoryInput,
+                                 DedupMemoryInput]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        all_ts = mfg.all_ts()
+        if isinstance(mem_input, DedupMemoryInput):
+            mem, kv = self._table_kv(mem_input.state, mem_input.uniq_nids,
+                                     mem_input.uniq_ts)
+        elif isinstance(mem_input, RawMemoryInput):
+            mem, kv = self._table_kv(mem_input.state, mfg.all_nodes(),
+                                     all_ts)
+        else:
+            mem, mail = mem_input["mem"], mem_input["mail"]
+            mail_ts = mem_input["mail_ts"]
+            if mail.dim() == 2:                              # one slot
+                mail, mail_ts = mail[:, None], mail_ts[:, None]
+            tf = self.time_enc(all_ts[:, None] - mail_ts)
+            kv = self.w_kv([mail, tf.to(self.compute_dtype or torch.float32)])
+        h = self.attend(mem, kv)
+        if isinstance(mem_input, DedupMemoryInput):
+            di = mem_input
+            h = expand_compact(h, di.inv, di.sidx, di.rank_sorted)
+        b = mfg.num_dst
         last_updated = {
             "last_updated_nid": mfg.root_nids,
             "last_updated_memory": h[:b].detach(),
@@ -182,11 +341,14 @@ def update_mem_mail(state: MemoryState,
 
     ``last_updated_*`` cover the ``[src | dst | neg]`` roots (3B rows);
     ``valid`` [B] masks padded batch rows.  Mail winners are taken over the
-    interleaved ids, memory winners over the block-ordered ids, and a
-    node's written memory row is its memory winner's (``memory.py:801-830``).
-    Only winner rows are scattered, so the result is deterministic."""
+    interleaved ids, memory winners over the block-ordered ids
+    (``memory.py:801-830``); both cover one node set.  With S slots a
+    node's mail goes to slot ``ptr mod S``, ``ptr`` read before the write,
+    and its memory winner writes ``ptr + 1``, taking ``ptr`` from the
+    node's interleaved row (``:834-875``): the cursor advances once per
+    node per step.  Only winner rows are scattered, so the result is
+    deterministic."""
     b = last_updated_nid.shape[0] // 3
-    dev = last_updated_nid.device
     src, dst = last_updated_nid[:b], last_updated_nid[b:2 * b]
     mem_src = last_updated_memory[:b]
     mem_dst = last_updated_memory[b:2 * b]
@@ -203,17 +365,20 @@ def update_mem_mail(state: MemoryState,
     nid_block = last_updated_nid[:2 * b]
     valid_block = torch.cat([valid, valid]) & (nid_block >= 0)
 
-    win_mail = unique_keep_last_mask(nid_inter, valid_inter)
-    win_mem = unique_keep_last_mask(nid_block, valid_block)
-    # node -> row of its memory winner (both masks cover one node set)
-    memwin = torch.zeros(state.num_nodes, dtype=torch.long, device=dev)
-    memwin[nid_block[win_mem]] = torch.arange(
-        2 * b, device=dev)[win_mem]
-    rows = win_mail.nonzero().squeeze(1)
-    nodes = nid_inter[rows]
-    midx = memwin[nodes]
-    state.node_memory[nodes] = last_updated_memory[midx].float()
-    state.node_memory_ts[nodes] = last_updated_ts[midx]
-    state.mailbox[nodes] = mail[rows].float()
-    state.mailbox_ts[nodes] = mail_ts[rows]
+    rows = unique_keep_last_mask(nid_inter, valid_inter).nonzero().squeeze(1)
+    mrows = unique_keep_last_mask(nid_block, valid_block).nonzero().squeeze(1)
+    nodes, mnodes = nid_inter[rows], nid_block[mrows]
+    S = state.mailbox_slots
+    if S == 1:
+        state.mailbox[nodes] = mail[rows].float()
+        state.mailbox_ts[nodes] = mail_ts[rows]
+    else:
+        ptr = state.mailbox_ptr[nid_inter.clamp(0, state.num_nodes - 1)]
+        slot = ptr[rows] % S
+        state.mailbox[nodes, slot] = mail[rows].float()
+        state.mailbox_ts[nodes, slot] = mail_ts[rows]
+        # block row i is interleaved row 2 (i mod b) + i div b
+        state.mailbox_ptr[mnodes] = ptr[2 * (mrows % b) + mrows // b] + 1
+    state.node_memory[mnodes] = last_updated_memory[mrows].float()
+    state.node_memory_ts[mnodes] = last_updated_ts[mrows]
     return state

@@ -7,8 +7,10 @@ submodules; kernels keep their ``[in, out]`` layout, so nothing is
 transposed.  The tree:
 
 - ``updater/FusedGRUCell_0/{ih,hh}/{kernel,bias}``,
-  ``updater/TimeEncode_0/{w,b}`` (TGN only: a model without memory has no
-  ``updater``)
+  ``updater/TimeEncode_0/{w,b}`` (TGN's GRU updater), or
+  ``updater/{w_kv,w_q}/{kernel,bias}``, ``updater/TimeEncode_0/{w,b}``,
+  ``updater/LayerNorm_0/{scale,bias}`` (APAN's transformer updater); a
+  model without memory has no ``updater``
 - per attention layer ``l{l}h{h}`` (TGN ``l0h0``; TGAT ``l0h0``, ``l1h0``;
   DySAT ``l{0,1}h{0,1,2}``): ``{w_q,w_kv,w_out}/{kernel,bias}``,
   ``TimeEncode_0/{w,b}``, ``LayerNorm_0/{scale,bias}``; a layer without

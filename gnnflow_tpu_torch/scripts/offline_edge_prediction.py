@@ -1,5 +1,5 @@
-"""Offline temporal link-prediction training of TGN, TGAT or DySAT on one
-card.
+"""Offline temporal link-prediction training of TGN, TGAT, DySAT or APAN
+on one card.
 
     python -m gnnflow_tpu_torch.scripts.offline_edge_prediction \
         --model TGN --data SYNTHETIC --epoch 3 [--device cpu]
@@ -9,9 +9,11 @@ Counterpart of ``scripts/offline_edge_prediction.py`` (its CLI at
 multiple devices or ``lax.scan``): chronological batches with a random
 epoch start, memory reset at every epoch after the first, validation AP
 and AUC after every epoch, a best-AP checkpoint with a memory backup,
-early stopping, and a final test on the best checkpoint.  ``--calibrate``
-calibrates the fast paths (TGN's memory dedup, TGAT's layer-dedup ladder)
-on the last three train batches before training, and a config with
+early stopping, and a final test on the best checkpoint (the memory
+backup carries APAN's mail slots and their cursor).  ``--calibrate``
+calibrates the fast paths (the memory dedup of TGN and APAN, TGAT's
+layer-dedup ladder) on the last three train batches before training, and
+a config with
 windowed snapshots (DySAT: the block compaction's factor and the
 snapshot-dedup ladder) always does (``:209-219``); otherwise the trainer
 calibrates on its first batch.  ``--snapshot-time-window`` overrides the
@@ -60,7 +62,8 @@ ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
 
 def make_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        description="offline TGN/TGAT/DySAT link-prediction training")
+        description="offline TGN/TGAT/DySAT/APAN link-prediction "
+                    "training")
     parser.add_argument("--model", choices=MODELS, required=True)
     parser.add_argument("--data", choices=DATASETS, required=True)
     parser.add_argument("--data-dir", default=None)

@@ -1,22 +1,23 @@
-"""The train and eval steps of TGN, TGAT and DySAT link prediction.
+"""The train and eval steps of TGN, TGAT, DySAT and APAN link prediction.
 
 Counterpart of ``gnnflow_tpu/train.py``: ``link_pred_loss``
 (``:49-65``), ``_gather_rows`` and ``fetch_features`` (``:92-137``), and a
 ``Trainer`` with ``init_state``, ``train_step`` and ``eval_step``
 (``:1200-1265, 1371-1378, 1411-1417``).  A step samples the batch roots'
 neighbours over every layer (most recent or uniform), gathers edge
-features, pulls memory rows (TGN), runs the model (GRU memory update,
-temporal attention layers, edge predictor) and computes the loss; a train
-step then back-propagates and takes an Adam step; with memory, both write
-memory and mails back, computed with the parameters from before the step.
+features, pulls memory rows (TGN, APAN), runs the model (GRU or
+transformer memory update, temporal attention layers, edge predictor) and
+computes the loss; a train step then back-propagates and takes an Adam
+step; with memory, both write memory and mails back, computed with the
+parameters from before the step.
 PyTorch runs eagerly, so there is no ``jit``.
 
 Three exact fast paths are ported, each a Python branch on a count where
 the JAX package has ``lax.cond``, so one host sync per decision:
 
 - the (nid, ts) memory dedup (``dedup_factor``, ``:861-904``) for models
-  with memory, calibrated on the first train step (``:451-623,
-  719-750``);
+  with memory, GRU or transformer, calibrated on the first train step
+  (``:451-623, 719-750``);
 - the layer dedup (``layer_dedup``, ``_layer_dedup_outputs``,
   ``:992-1091``) for models of two or more layers without memory (TGAT):
   a deeper layer samples only the unique (nid, ts) roots of its parent
@@ -145,6 +146,21 @@ def tier_caps(factors: Sequence[float], num_all: int) -> List[int]:
     return caps
 
 
+def dedup_factor_for(uniq_frac: float, updater: str) -> Optional[float]:
+    """The memory dedup's factor from the worst measured unique fraction
+    of the memory instances (``train.py:603-622``); None (off) above the
+    updater's gate.  The GRU's dedup saves only the gates and the pull, so
+    its sort machinery pays only at extreme duplication: ``round(min(0.35,
+    2.5u + 0.02), 2)`` up to ``u = 0.08``.  The transformer's shrinks the
+    whole updater (pull, K/V, attention, LayerNorm): ``round(min(0.7,
+    1.25u + 0.03), 2)`` up to ``u = 0.5``."""
+    if updater == "gru":
+        return round(min(0.35, 2.5 * uniq_frac + 0.02), 2) \
+            if uniq_frac <= 0.08 else None
+    return round(min(0.7, 1.25 * uniq_frac + 0.03), 2) \
+        if uniq_frac <= 0.5 else None
+
+
 def compact_factor_for(occupancy: float) -> Optional[float]:
     """The block compaction's factor from the worst measured occupancy of
     deeper layers' neighbour slots (``train.py:595-600``): 1.4x headroom
@@ -222,6 +238,9 @@ class Trainer:
 
     ``dedup_factor`` sizes the compact table of the memory dedup as a
     fraction of the instances (``None``: off; models with memory only).
+    ``apan_table`` gives the transformer memory updater the raw state, from
+    which it pulls pre-projected K/V rows, instead of per-instance rows
+    (``"auto"``: on for the transformer updater, ``train.py:232-241``).
     ``layer_dedup`` is the layer (or, with windowed snapshots, snapshot)
     dedup's factor or ascending ladder of factors (``None``: off; models
     of two or more layers without memory).  ``model_compact`` runs the
@@ -238,7 +257,8 @@ class Trainer:
                  num_snapshots: int = 1, snapshot_time_window: float = 0.0,
                  prop_time: bool = False, lr: float = 1e-4,
                  compact_factor="auto", dedup_factor="auto",
-                 model_compact="auto", layer_dedup="auto", device="cuda"):
+                 model_compact="auto", layer_dedup="auto",
+                 apan_table="auto", device="cuda"):
         self.fanouts = tuple(int(f) for f in fanouts)
         if len(self.fanouts) != model.num_layers:
             raise ValueError(f"{len(self.fanouts)} fanouts for a model of "
@@ -266,6 +286,9 @@ class Trainer:
             windowed and len(self.fanouts) >= 2 and not model.use_memory
             if model_compact == "auto" else model_compact)
         self.dedup_factor = None if self._auto["dedup"] else dedup_factor
+        self.apan_table = (model.use_memory
+                           and model.memory_updater == "transformer") \
+            if apan_table == "auto" else bool(apan_table)
         self.layer_dedup = None if self._auto["layer_dedup"] \
             else layer_dedup
         # deeper boundaries' own cap factor; None: the ladder's largest
@@ -291,15 +314,15 @@ class Trainer:
                 and (self.num_snapshots == 1 or self.window > 0))
 
     def init_state(self, num_nodes: int, seed: int = 0) -> TrainState:
-        """Zero memory for ``num_nodes`` nodes (models with memory), a
-        fresh Adam state, a dropout generator seeded with ``seed`` and a
-        sampling generator seeded with ``SAMPLE_SEED_OFFSET + seed``, on
-        the trainer's device."""
+        """Zero memory for ``num_nodes`` nodes and the model's mail slots
+        (models with memory), a fresh Adam state, a dropout generator
+        seeded with ``seed`` and a sampling generator seeded with
+        ``SAMPLE_SEED_OFFSET + seed``, on the trainer's device."""
         memory = None
         if self.model.use_memory:
             memory = memory_lib.init_memory(
                 num_nodes, self.model.dim_memory, self.model.dim_edge,
-                self.device)
+                self.device, self.model.mailbox_slots)
         return TrainState(
             memory=memory,
             optimizer=torch.optim.Adam(self.model.parameters(), lr=self.lr,
@@ -454,10 +477,11 @@ class Trainer:
     def _mem_input(self, state: TrainState, mfg: MFG):
         """The memory updater's input (``train.py:834-904``): the dedup's
         compact input when the factor is set and the batch's unique pairs
-        fit its cap, else the per-instance pull, in bf16 under bf16
-        compute when the node table is small next to the instance count
-        (``:851-858``; timestamps stay f32).  Records the unique count in
-        ``state.dedup_n_uniq``."""
+        fit its cap; else the raw state for the transformer updater's
+        table path (``apan_table``); else the per-instance pull, in bf16
+        under bf16 compute when the node table is small next to the
+        instance count (``:851-858``; timestamps stay f32).  Records the
+        unique count in ``state.dedup_n_uniq``."""
         memory = state.memory
         state.dedup_n_uniq = None
         if self.dedup_factor:
@@ -470,6 +494,8 @@ class Trainer:
                 return memory_lib.DedupMemoryInput(
                     state=memory, uniq_nids=uniq_nid, uniq_ts=uniq_ts,
                     inv=inv, sidx=sidx, rank_sorted=rank_sorted)
+        if self.apan_table and self.model.memory_updater == "transformer":
+            return memory_lib.RawMemoryInput(memory)
         if self.model.compute_dtype == "bfloat16" \
                 and 3 * memory.num_nodes <= mfg.num_all:
             return memory_lib.prepare_input(memory, mfg, torch.bfloat16)
@@ -583,11 +609,10 @@ class Trainer:
         probe key.  With windowed snapshots, the worst occupancy of deeper
         layers' neighbour slots sets ``compact_factor``
         (:func:`compact_factor_for`).  With memory, the worst unique
-        fraction ``u`` of the memory instances sets ``dedup_factor`` to
-        ``round(min(0.35, 2.5u + 0.02), 2)`` when ``u <= 0.08`` and None
-        (off) above.  Where the layer dedup applies, each probe gives the
-        unique fraction at the first layer boundary and the worst at
-        deeper ones (each the largest over the snapshots), and
+        fraction ``u`` of the memory instances sets ``dedup_factor``
+        (:func:`dedup_factor_for`).  Where the layer dedup applies, each
+        probe gives the unique fraction at the first layer boundary and the
+        worst at deeper ones (each the largest over the snapshots), and
         :func:`tier_ladder` sets ``layer_dedup`` and ``layer_dedup_deep``.
         Returns ``{"occupancy", "uniq_frac", "boundary_uniq_frac",
         "compact_factor", "dedup_factor", "layer_dedup",
@@ -614,11 +639,8 @@ class Trainer:
         if occ and windowed and self._auto["compact"]:
             self.compact_factor = compact_factor_for(stats["occupancy"])
         if uniq_frac and self._auto["dedup"]:
-            # the GRU dedup saves only the GRU gates and the pull; its
-            # sort machinery pays only at extreme duplication
-            u = stats["uniq_frac"]
-            self.dedup_factor = round(min(0.35, 2.5 * u + 0.02), 2) \
-                if u <= 0.08 else None
+            self.dedup_factor = dedup_factor_for(stats["uniq_frac"],
+                                                 self.model.memory_updater)
         if boundary_frac and self._auto["layer_dedup"]:
             self.layer_dedup, self.layer_dedup_deep = tier_ladder(
                 boundary_frac, len(self.fanouts),

@@ -20,6 +20,7 @@ from gnnflow_tpu_torch.models import memory as memory_lib
 from gnnflow_tpu_torch.models.dgnn import DGNN
 from gnnflow_tpu_torch.models.factory import build_model
 from gnnflow_tpu_torch.scripts import offline_edge_prediction as entry
+from gnnflow_tpu_torch.train import Trainer
 from gnnflow_tpu_torch.utils import EarlyStopMonitor
 from gnnflow_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                 save_checkpoint)
@@ -126,7 +127,7 @@ def test_build_dynamic_graph_from_data_configs():
 
 @pytest.mark.parametrize("name, dim_node", [
     pytest.param("dysat", 4, id="dysat"),   # node features: item 10
-    pytest.param("apan", 0, id="apan"),
+    pytest.param("apan", 4, id="apan"),     # node features: item 10
     pytest.param("graphsage", 0, id="graphsage"),
     pytest.param("gat", 0, id="gat")])
 def test_build_model_names_the_roadmap_item(name, dim_node):
@@ -147,11 +148,25 @@ def test_build_model_tgn():
                     device="cpu")
 
 
+def test_build_model_apan():
+    cfg, _ = config.get_default_config("apan", "synthetic")
+    model, kw = build_model("APAN", cfg, 0, 6, seed=1, device="cpu")
+    assert kw == {"fanouts": [10], "sample_strategy": "recent",
+                  "num_snapshots": 1, "snapshot_time_window": 0,
+                  "prop_time": False}
+    assert (model.memory_updater, model.mailbox_slots) == ("transformer", 10)
+    trainer = Trainer(model, device="cpu", **kw)
+    assert trainer.apan_table
+    mem = trainer.init_state(30).memory
+    assert mem.mailbox.shape == (30, 10, 206)
+    assert mem.mailbox_ts.shape == (30, 10)
+
+
 @pytest.mark.parametrize("flags", [
     ["--cache", "LRUCache"], ["--num-devices", "2"],
     ["--memory-storage", "bfloat16"], ["--remat-attention"], ["--use-scan"],
     ["--pipeline"], ["--features-on-host"],
-    ["--model", "APAN"]])
+    ["--model", "GRAPHSAGE"]])
 def test_entry_refuses_unported_flags(flags, capsys):
     with pytest.raises(SystemExit):
         entry.main(["--model", "TGN", "--data", "SYNTHETIC", *flags])
@@ -177,4 +192,29 @@ def test_entry_trains_two_epochs_on_cpu(tmp_path, caplog):
     assert ckpt["extra"]["epoch"] == out["best_epoch"]
     assert ckpt["extra"]["ap"] == max(out["val_ap"])
     assert set(ckpt["memory"]) == {"node_memory", "node_memory_ts",
-                                   "mailbox", "mailbox_ts"}
+                                   "mailbox", "mailbox_ts", "mailbox_ptr"}
+
+
+def test_entry_trains_apan_on_cpu(tmp_path, caplog):
+    """One epoch of ``--model APAN``: the first step calibrates the memory
+    dedup by the transformer's rule, and the best checkpoint's memory
+    backup carries the 10 mail slots and their cursors.  ``--num-chunks
+    1`` starts the epoch at the first edge, so the 2,100 train edges make
+    one (padded) batch of 4,000."""
+    path = str(tmp_path / "APAN_torch.ckpt")
+    with caplog.at_level(logging.INFO):
+        out = entry.main(["--model", "APAN", "--data", "SYNTHETIC",
+                          "--epoch", "1", "--synthetic-edges", "3000",
+                          "--synthetic-dim-edge", "16", "--num-chunks", "1",
+                          "--device", "cpu"], checkpoint_path=path)
+    for v in out["val_ap"] + [out["test_ap"]]:
+        assert 0.0 < v <= 1.0
+    msgs = [r.getMessage() for r in caplog.records]
+    assert any("auto-calibration" in m and "'dedup_factor': 0." in m
+               for m in msgs)
+    assert any("epoch 0: time" in m and "throughput 0 " not in m
+               for m in msgs)
+    mem = load_checkpoint(path)["memory"]
+    assert mem["mailbox"].shape[1:] == (10, 216)
+    assert mem["mailbox_ts"].shape[1:] == (10,)
+    assert int(mem["mailbox_ptr"].max()) >= 1

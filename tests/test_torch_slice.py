@@ -112,7 +112,8 @@ def test_weight_loader_rejects_other_trees():
 
 
 @pytest.mark.parametrize("kw", [dict(dim_node=4),
-                                dict(memory_updater="transformer"),
+                                dict(memory_updater="transformer",
+                                     dim_node=4),
                                 dict(dim_time=0),
                                 dict(num_layers=2)])
 def test_unported_configs_raise(kw):
