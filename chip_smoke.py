@@ -92,6 +92,20 @@ Phases (each prints one line; any failure raises and exits non-zero):
    gradient and of the updater's attention; then K3 at the embedding
    layer's eval shape and K4 at the memory dedup's boundary against their
    plain versions.  Phase 8's CPU-card check holds APAN in f32 too.
+12. static: GraphSAGE and GAT as ``bench.py:127-160`` run them (REDDIT
+   defaults through ``build_model``: GraphSAGE 2 layers, fanouts [15, 10],
+   the mean aggregator; GAT 2 layers, fanouts [10, 10], heads (2, 1),
+   dropout and attention dropout 0.1; both uniform sampling at the static
+   timestamp 3.4e38, embedding width 100, bf16 compute, the stream's
+   128-dim node features, batch 4000) on the same stream, each: 10 eval
+   batches (padded; no kernel), 20 train steps with the default trainer
+   (the first calibrates the layer-dedup ladder; K4 once a step that takes
+   a tier), 5 steps on the layer dedup at the set factor 0.95 (K4 once a
+   step that fits), 5 at factor 0.01 (all fall back, K4 never), one epoch
+   of the entry script; then K4 at the layer boundary (GraphSAGE: 192,000
+   rows of width 100; GAT: 132,000 of width 200) against its plain
+   version.  Phase 8's CPU-card check holds both in f32 too: eval, and 4
+   train steps on a two-tier layer-dedup ladder.
 
 Then one JSON line with every kernel's numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.
@@ -669,10 +683,11 @@ def _graph(full):
 
 def reddit_stream(torch):
     """The REDDIT-shaped stream of bench.py:221-227, its graph (built from
-    every edge, as bench.py does) and edge features on the card."""
+    every edge, as bench.py does), and its edge features and the 128-dim
+    node features of the static models (bench.py:224-227) on the card."""
     from gnnflow_tpu_torch.data import make_synthetic_dataset
     t0 = time.perf_counter()
-    train, _, _, full, _, ef_np = make_synthetic_dataset(
+    train, _, _, full, nf_np, ef_np = make_synthetic_dataset(
         num_src=10_000, num_dst=984, num_edges=672_447, dim_node=128,
         dim_edge=172, seed=42, time_scale=4.0)
     t_data = time.perf_counter() - t0
@@ -680,7 +695,8 @@ def reddit_stream(torch):
     g = _graph(full)
     t_ingest = time.perf_counter() - t0
     return dict(train=train, full=full, g=g, dg=g.device_graph("cuda"),
-                ef=torch.from_numpy(ef_np).cuda(), data_s=t_data,
+                ef=torch.from_numpy(ef_np).cuda(),
+                nf=torch.from_numpy(nf_np).cuda(), data_s=t_data,
                 ingest_s=t_ingest)
 
 
@@ -1976,6 +1992,252 @@ def phase_apan(torch, kernels, stream):
                 table_vs_per_instance=tvp, entry=en, updater_parts=parts)
 
 
+STATIC_FACTOR = 0.95    # the layer dedup's set factor in phase_static
+
+
+def _static(name, layer_dedup="auto", device="cuda", **overrides):
+    """GraphSAGE or GAT as bench.py:127-160 builds them: the REDDIT
+    defaults of the config registry (GraphSAGE: 2 layers, fanouts [15, 10],
+    the mean aggregator; GAT: 2 layers, fanouts [10, 10], heads (2, 1),
+    dropout and attention dropout 0.1; both uniform sampling at the static
+    timestamp, embedding width 100) in bf16 compute over f32 parameters,
+    the stream's 128-dim node features, seeded random weights, through
+    ``build_model`` and the trainer arguments it returns."""
+    from gnnflow_tpu_torch.config import get_default_config
+    from gnnflow_tpu_torch.models.factory import build_model
+    from gnnflow_tpu_torch.train import Trainer
+    mc, _ = get_default_config(name, "REDDIT")
+    mc.update({"compute_dtype": "bfloat16", **overrides})
+    model, kw = build_model(name, mc, 128, 172, seed=0, device=device)
+    return model, Trainer(model, lr=1e-4, layer_dedup=layer_dedup,
+                          device=device, **kw)
+
+
+def phase_static(torch, kernels, stream):
+    """GraphSAGE and GAT (``_static``) on the REDDIT-shaped stream at
+    batch 4000, each: eval batches on the padded path (no kernel), train
+    steps with the default trainer (the first calibrates the layer-dedup
+    ladder; K4 once a step that takes a tier), steps on the layer dedup at
+    the set factor ``STATIC_FACTOR`` (K4 once a step that fits), steps at
+    factor 0.01 (every step falls back, K4 never) and one epoch of the
+    entry script; then K4 at each model's layer boundary (GraphSAGE L
+    192,000, D 100; GAT L 132,000, D 200, the two heads' flat output)
+    against its plain version.  Returns the launch counts of each path
+    and K4's rows."""
+    import numpy as np
+    from gnnflow_tpu_torch.ops import _build
+    from gnnflow_tpu_torch.ops.dedup import dedup_instances
+    from gnnflow_tpu_torch.scripts import offline_edge_prediction as entry
+    from gnnflow_tpu_torch.train import STATIC_SAMPLE_TS, tier_caps
+    from gnnflow_tpu_torch.utils import (average_precision_score,
+                                         roc_auc_score)
+    g, dg, ef, nf, train, full = stream["g"], stream["dg"], stream["ef"], \
+        stream["nf"], stream["train"], stream["full"]
+    num_nodes = g.max_vertex_id() + 1
+    B, warm, ev_runs, steps, extra = 4000, 3, 10, 20, 5
+    launches, out, k4_rows = {}, {}, {}
+
+    def counts():
+        return {name: fn.launches for name, fn in kernels.items()}
+
+    def expect(k4):
+        return {"gru_memory_fused": 0, "gru_memory_fused_bwd": 0,
+                "neighborhood_attention": 0, "sorted_segment_sum": k4}
+
+    def stepper(trainer, state):
+        def step(b):
+            loss = trainer.train_step(state, dg, ef, b, node_feats=nf)[1]
+            return loss, state.layer_dedup_compact, state.layer_dedup_n_uniq
+        return step
+
+    def finite(model, losses):
+        return bool(torch.isfinite(losses).all()) and all(
+            bool(torch.isfinite(p).all()) for p in model.parameters())
+
+    ev_batches = _take(full, B, full.dst, warm + ev_runs)
+    tb = _take(train, B, train.dst, steps + 3)
+    for name in ("GRAPHSAGE", "GAT"):
+        key = name.lower()
+        res = {}
+        # ---- eval: the default trainer before any train step, padded --
+        model, trainer = _static(name)
+        state = trainer.init_state(num_nodes, seed=0)
+        for b in ev_batches[:warm]:
+            trainer.eval_step(state, dg, ef, b, node_feats=nf)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(kernels)
+        outs, dev_ms, host_ms = _timed_steps(
+            torch, lambda b: trainer.eval_step(state, dg, ef, b,
+                                               node_feats=nf)[1:],
+            ev_batches[warm:])
+        launches[f"{key}_eval"] = counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        pos = torch.cat([o[1][:b.num_valid] for o, b in
+                         zip(outs, ev_batches[warm:])]).float().cpu().numpy()
+        neg = torch.cat([o[2][:b.num_valid] for o, b in
+                         zip(outs, ev_batches[warm:])]).float().cpu().numpy()
+        losses = torch.stack([o[0] for o in outs]).cpu()
+        if not (bool(torch.isfinite(losses).all()) and np.isfinite(pos).all()
+                and np.isfinite(neg).all() and len(pos) == ev_runs * B):
+            raise AssertionError(f"{name} eval: non-finite values or wrong "
+                                 f"shapes")
+        _check_launches(launches[f"{key}_eval"], expect(0),
+                        f"{ev_runs} {name} eval batches")
+        y = np.concatenate([np.ones(len(pos)), np.zeros(len(neg))])
+        sc = np.concatenate([pos, neg])
+        res["eval"] = dict(
+            batches=ev_runs, batch_size=B,
+            ms_per_batch=statistics.mean(dev_ms),
+            host_ms_per_batch=statistics.mean(host_ms),
+            edges_per_s=B / (statistics.mean(dev_ms) / 1e3),
+            ap=average_precision_score(y, sc), auc=roc_auc_score(y, sc),
+            mean_loss=float(losses.mean()), max_memory_allocated_mib=peak,
+            launches=launches[f"{key}_eval"],
+            profile=_profile(torch, lambda b: trainer.eval_step(
+                state, dg, ef, b, node_feats=nf), ev_batches[warm:warm + 3]))
+        _log("static", model=name, path="eval", **res["eval"])
+        del model, trainer, state, outs
+
+        # ---- train, default trainer: the first step calibrates --------
+        model, trainer = _static(name)
+        state = trainer.init_state(num_nodes, seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(kernels)
+        outs, dev_ms, host_ms = _timed_steps(torch, stepper(trainer, state),
+                                             tb[:steps])
+        launches[f"{key}_train"] = counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        losses = torch.stack([o[0] for o in outs]).cpu()
+        compact = [o[1] for o in outs]
+        takes = trainer.tier_take_stats(state)
+        if not finite(model, losses):
+            raise AssertionError(f"{name} training produced a non-finite "
+                                 f"value")
+        if takes["total"] != (steps if trainer.layer_dedup is not None
+                              else 0):
+            raise AssertionError(f"{name} tier takes {takes} over {steps} "
+                                 f"steps")
+        _check_launches(launches[f"{key}_train"], expect(sum(compact)),
+                        f"{steps} {name} train steps")
+        # the first-boundary unique fraction of each of the calibration's
+        # four probes (static: all four are the first batch at 3.4e38)
+        t_hi, t_b = float(dg.e_ts.max()), float(tb[0].ts.max())
+        shifts = [np.float32(0.0)] + [np.float32(q * t_hi - t_b)
+                                      for q in (0.33, 0.67, 1.0)]
+        probe_fracs = [trainer._probe(dg, tb[0].target_nodes,
+                                      tb[0].ts + d)[2][0] for d in shifts]
+        prof = _profile(torch, lambda b: trainer.train_step(
+            state, dg, ef, b, node_feats=nf), tb[steps:steps + 3])
+        fast = [t for t, c in zip(dev_ms, compact) if c]
+        slow = [t for t, c in zip(dev_ms, compact) if not c]
+        res["train"] = dict(
+            steps=steps, batch_size=B, calibration=trainer.calibration,
+            calibration_probe_first_boundary_uniq_fracs=probe_fracs,
+            ladder=trainer.layer_dedup, first_step_ms=dev_ms[0],
+            first_step_host_ms=host_ms[0],
+            ms_per_step=statistics.mean(dev_ms[warm:]),
+            host_ms_per_step=statistics.mean(host_ms[warm:]),
+            edges_per_s=B / (statistics.mean(dev_ms[warm:]) / 1e3),
+            tier_ms_per_step=_mean_or_none(fast),
+            fallback_ms_per_step=_mean_or_none(slow),
+            tier_takes=takes, compact_steps=sum(compact),
+            first_boundary_n_uniq=[o[2][0] if o[2] else None for o in outs],
+            loss_first5=float(losses[:5].mean()),
+            loss_last5=float(losses[-5:].mean()),
+            max_memory_allocated_mib=peak,
+            launches=launches[f"{key}_train"], profile=prof)
+        _log("static", model=name, path="train", **res["train"])
+        # K4's boundary: the outer layer of the last batch of the
+        # set-factor path below, sampled at the static timestamp
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        b = tb[extra - 1]
+        outer = trainer._sample(gen, dg, torch.from_numpy(b.target_nodes)
+                                .cuda(), torch.full((len(b.ts),),
+                                                    STATIC_SAMPLE_TS,
+                                                    device="cuda"))[1][0]
+        del model, trainer, state, outs
+
+        # ---- the layer dedup at the set factor: K4 once a fast step ---
+        model, trainer = _static(name, layer_dedup=STATIC_FACTOR)
+        state = trainer.init_state(num_nodes, seed=0)
+        _reset(kernels)
+        outs, dev_ms, host_ms = _timed_steps(torch, stepper(trainer, state),
+                                             tb[:extra])
+        launches[f"{key}_layer_dedup"] = counts()
+        compact = [o[1] for o in outs]
+        losses = torch.stack([o[0] for o in outs]).cpu()
+        if not finite(model, losses) or sum(compact) < 1:
+            raise AssertionError(f"{name} at factor {STATIC_FACTOR}: losses "
+                                 f"{losses}, steps on the dedup {compact}")
+        _check_launches(launches[f"{key}_layer_dedup"], expect(sum(compact)),
+                        f"{extra} {name} train steps at factor "
+                        f"{STATIC_FACTOR}")
+        res["layer_dedup"] = dict(
+            factor=STATIC_FACTOR, steps=extra, compact_steps=sum(compact),
+            first_boundary_n_uniq=[o[2][0] for o in outs],
+            first_boundary_instances=outer.num_all,
+            ms_per_step=statistics.mean(dev_ms),
+            host_ms_per_step=statistics.mean(host_ms),
+            losses=losses.tolist(), launches=launches[f"{key}_layer_dedup"])
+        _log("static", model=name, path="layer_dedup", **res["layer_dedup"])
+        del model, trainer, state, outs
+
+        # ---- factor 0.01: every step falls back to the padded path ----
+        model, trainer = _static(name, layer_dedup=0.01)
+        state = trainer.init_state(num_nodes, seed=0)
+        _reset(kernels)
+        outs, dev_ms, host_ms = _timed_steps(torch, stepper(trainer, state),
+                                             tb[:extra])
+        launches[f"{key}_fallback"] = counts()
+        compact = [o[1] for o in outs]
+        takes = trainer.tier_take_stats(state)
+        if any(compact) or takes["fallback_rate"] != 1.0:
+            raise AssertionError(f"{name} at factor 0.01: steps on the dedup "
+                                 f"{compact}, takes {takes}")
+        _check_launches(launches[f"{key}_fallback"], expect(0),
+                        f"{extra} {name} train steps at factor 0.01")
+        res["fallback"] = dict(factor=0.01, steps=extra, tier_takes=takes,
+                               ms_per_step=statistics.mean(dev_ms),
+                               host_ms_per_step=statistics.mean(host_ms),
+                               launches=launches[f"{key}_fallback"])
+        _log("static", model=name, path="fallback", **res["fallback"])
+        del model, trainer, state, outs
+
+        # ---- the entry script, one epoch ------------------------------
+        _reset(kernels)
+        t0 = time.perf_counter()
+        en = entry.main(["--model", name, "--data", "SYNTHETIC", "--epoch",
+                         "1"], checkpoint_path=os.path.join(
+                             _build.BUILD_DIR, f"{name}_torch.ckpt"))
+        torch.cuda.synchronize()
+        launches[f"{key}_entry"] = counts()
+        aps = en["val_ap"] + [en["test_ap"]]
+        if not all(0.0 < a <= 1.0 for a in aps):
+            raise AssertionError(f"{name} entry: {en}")
+        res["entry"] = dict(seconds=time.perf_counter() - t0,
+                            launches=launches[f"{key}_entry"], **en)
+        _log("static", model=name, path="entry", **res["entry"])
+
+        # ---- K4 at the layer boundary ---------------------------------
+        D = 100 * (2 if name == "GAT" else 1)
+        (cap,) = tier_caps([STATIC_FACTOR], outer.num_all)
+        _, _, _, n_uniq, _, seg = dedup_instances(
+            outer.all_nodes(), outer.all_ts(), outer.all_mask(), cap)
+        w = dict(device=torch.device("cuda"),
+                 generator=torch.Generator(device="cuda").manual_seed(1))
+        k4 = _k4_check(torch, w, seg, cap, int(n_uniq), D)
+        _log("kernels", kernel="sorted_segment_sum", dtype="float32",
+             at=f"{name} layer boundary", shape=[outer.num_all, D, cap], **k4)
+        k4_rows[key] = dict(shape=[outer.num_all, D], cap=cap,
+                            factor=STATIC_FACTOR, train_batch=extra,
+                            **{k: v for k, v in k4.items() if k != "tol"})
+        out[key] = res
+    return dict(launches=launches, rows={"sorted_segment_sum": k4_rows},
+                **out)
+
+
 def _plain_attention_ms(torch, model, rec):
     """Device time of the plain attention with its dropout, forward and
     backward, on the inputs each layer last gave it (``rec``), replayed
@@ -2264,6 +2526,8 @@ def phase_self_check(torch, card: str = "cuda"):
                                              num_nodes, failed)
     out["apan_float32"] = _self_check_apan(torch, card, full, graphs, efs,
                                            num_nodes, failed)
+    out["static_float32"] = _self_check_static(torch, card, full, graphs,
+                                               num_nodes, failed)
     _log("self_check", eval_batches=4, batch_size=500, **out)
     if failed:
         raise AssertionError(f"CPU vs card: {failed} beyond tolerance")
@@ -2626,6 +2890,94 @@ def _self_check_apan(torch, card, full, graphs, efs, num_nodes, failed):
                            finite=fin))
 
 
+def _self_check_static(torch, card, full, graphs, num_nodes, failed):
+    """GraphSAGE and GAT in f32 (the widths of ``_static``, dropout 0),
+    CPU (plain versions) against card (kernels), on the same uniform draws
+    and 128-dim node features drawn from a seed: eval logits over 4 padded
+    batches, then 4 train steps on a two-tier layer-dedup ladder (loss,
+    gradients, parameters after each step), with the same tiers taken on
+    both sides and K4 launched once per step on the card's dedup; TGAT's
+    tolerances."""
+    import numpy as np
+    from gnnflow_tpu_torch.data import DstRandEdgeSampler, get_batches
+    from gnnflow_tpu_torch.ops.segment_sum import sorted_segment_sum
+    nf_np = np.random.RandomState(8).randn(num_nodes, 128).astype(np.float32)
+    nfs = {d: torch.from_numpy(nf_np).to(d) for d in ("cpu", card)}
+    tol, ladder = 1e-4, (0.4, 0.6)
+    tt = dict(loss=1e-4, grad=1e-4, param=1e-5)
+    out = {}
+    for name in ("GRAPHSAGE", "GAT"):
+        def run(device, layer_dedup):
+            model, tr = _static(name, layer_dedup=layer_dedup, device=device,
+                                compute_dtype=None, dropout=0.0,
+                                att_dropout=0.0)
+            _cpu_draws(torch, tr, 5)
+            return dict(model=model, tr=tr, st=tr.init_state(num_nodes),
+                        device=device, trace=[], compact=[])
+
+        ev = {}
+        for device in ("cpu", card):
+            r = run(device, None)
+            logits = []
+            neg = DstRandEdgeSampler(full.dst, seed=3)
+            for i, b in enumerate(get_batches(full, 500, neg)):
+                if i == 4:
+                    break
+                _, _, p, n = r["tr"].eval_step(r["st"], graphs[device], None,
+                                               b, node_feats=nfs[device])
+                logits.append(torch.cat([p, n]).float().cpu())
+            ev[device] = logits
+        err_l = max((a - b).abs().max().item()
+                    for a, b in zip(ev["cpu"], ev[card]))
+        if not err_l <= tol:
+            failed.append(f"{name} eval float32")
+
+        runs = {nm: run(nm if nm == "cpu" else card, ladder)
+                for nm in ("cpu", "card")}
+        neg = DstRandEdgeSampler(full.dst, seed=4)
+        k4_before = sorted_segment_sum.launches
+        steps = 4
+        for i, b in enumerate(get_batches(full, 500, neg)):
+            if i == steps:
+                break
+            for r in runs.values():
+                _, loss, _, _ = r["tr"].train_step(
+                    r["st"], graphs[r["device"]], None, b,
+                    node_feats=nfs[r["device"]])
+                r["compact"].append(r["st"].layer_dedup_compact)
+                r["trace"].append(dict(
+                    loss=loss.float().cpu(),
+                    grad=[q.grad.float().cpu()
+                          for q in r["model"].parameters()],
+                    param=[q.detach().cpu().clone()
+                           for q in r["model"].parameters()],
+                    memory=torch.zeros(1)))
+        k4 = sorted_segment_sum.launches - k4_before
+        pnames = [nm for nm, _ in runs["cpu"]["model"].named_parameters()]
+        errs, worst = _trace_errs(runs["cpu"]["trace"],
+                                  runs["card"]["trace"], pnames)
+        finite = all(bool(torch.isfinite(x).all())
+                     for s_ in runs["card"]["trace"]
+                     for x in s_["grad"] + s_["param"])
+        compact = runs["card"]["compact"]
+        if not (all(max(errs[k]) <= tt[k] for k in tt) and finite
+                and compact == runs["cpu"]["compact"] and sum(compact) >= 1
+                and k4 == (sum(compact) if card != "cpu" else 0)):
+            failed.append(f"{name} train layer dedup float32")
+        out[name.lower()] = dict(
+            eval=dict(batches=4, logits_max_abs_err=err_l, tol=tol),
+            train=dict(steps=steps, ladder=list(ladder),
+                       per_step_max_err={k: errs[k] for k in tt},
+                       worst_grad_parameter=worst, tol=tt,
+                       compact_steps=compact,
+                       cpu_compact_steps=runs["cpu"]["compact"],
+                       first_boundary_n_uniq=runs["card"]["st"]
+                       .layer_dedup_n_uniq,
+                       tier_takes=runs["card"]["st"].tier_takes,
+                       k4_launches=k4, finite=finite))
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -2650,6 +3002,7 @@ def main() -> int:
     tg = phase_tgat(torch, kernels, stream)
     dy = phase_dysat(torch, kernels, stream)
     ap = phase_apan(torch, kernels, stream)
+    st = phase_static(torch, kernels, stream)
     # launches on each main path, counted from 0 just before it: TGN eval
     # batches, train steps at att_dropout 0.2 and at 0, dedup train steps,
     # fallback steps and eval batches, the entry script's two epochs; TGAT
@@ -2658,13 +3011,16 @@ def main() -> int:
     # steps at att_dropout 0 on the snapshot dedup, on the block
     # compaction, at factor 0.01, the entry script's epoch; APAN eval
     # batches, default train steps, steps at att_dropout 0 on the memory
-    # dedup, at factor 0.01, the entry script's epoch
+    # dedup, at factor 0.01, the entry script's epoch; GraphSAGE's and
+    # GAT's eval batches, default train steps, steps on the layer dedup at
+    # STATIC_FACTOR, at factor 0.01, the entry script's epoch
     paths = {"eval": sl["launches"], "train": tr["launches"],
              "train_att_dropout0": tr["att_dropout0"]["launches"],
              "dedup_train": dd["launches"],
              "dedup_fallback": dd["fallback"]["launches"],
              "dedup_eval": dd["eval"]["launches"], "entry": en["launches"],
-             **tg["launches"], **dy["launches"], **ap["launches"]}
+             **tg["launches"], **dy["launches"], **ap["launches"],
+             **st["launches"]}
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())
@@ -2674,6 +3030,8 @@ def main() -> int:
             row["dysat"] = dy["rows"][row["name"]]
         if row["name"] in ap["rows"]:
             row["apan"] = ap["rows"][row["name"]]
+        if row["name"] in st["rows"]:
+            row["static"] = st["rows"][row["name"]]
     print(json.dumps({"kernels": rows, "card": dev["smi"],
                       "profiler_empty": PROFILER_EMPTY}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 
 Counterpart of ``gnnflow_tpu/models/dgnn.py:31-202`` restricted to what
 these four run: an optional memory updater (one snapshot; the GRU of TGN
-or the transformer of APAN, over one mail slot or several), a
+or the transformer of APAN, over one mail slot or several, with node
+features added to its output), a
 ``num_layers x num_snapshots`` grid of temporal attention layers
 ``l{l}h{h}``, the snapshot combiner (DySAT: an RNN over the snapshots'
 embeddings) and the edge predictor, for inference and training.  Between
@@ -44,9 +45,9 @@ class SimpleRNNCell(nn.Module):
 class DGNN(nn.Module):
     """Dynamic GNN over padded MFGs (TGN: memory and one attention layer;
     APAN: the same with the transformer memory updater and a mailbox of
-    ``mailbox_slots`` slots; TGAT: attention layers without memory or node
-    input; DySAT: the same over S snapshots, without time encoding, and
-    the combiner).
+    ``mailbox_slots`` slots; TGAT: attention layers without memory, whose
+    first takes the node features where ``dim_node > 0``; DySAT: the same
+    over S snapshots, without time encoding, and the combiner).
 
     Weights are drawn from ``torch.Generator().manual_seed(seed)`` on the
     CPU (so every device gets the same weights) and moved to ``device``.
@@ -69,16 +70,10 @@ class DGNN(nn.Module):
             raise ValueError(f"unknown memory updater {memory_updater!r}")
         if mailbox_slots < 1:
             raise ValueError("mailbox_slots must be at least 1")
-        unsupported = {
-            "memory with more than one layer":
-                (use_memory and num_layers != 1, "modules to port, item 5"),
-            "node features (dim_node > 0)":
-                (dim_node != 0, "modules to port, item 10"),
-        }
-        for what, (bad, item) in unsupported.items():
-            if bad:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP.md, {item})")
+        if use_memory and num_layers != 1:
+            raise NotImplementedError(
+                "memory with more than one layer is not ported yet "
+                "(ROADMAP.md, modules to port, item 5)")
         if use_memory and dim_memory is None:
             raise ValueError("a model with memory needs dim_memory")
         if num_layers < 1 or num_snapshots < 1:
@@ -97,11 +92,11 @@ class DGNN(nn.Module):
         self.dropout, self.att_dropout = dropout, att_dropout
         gen = torch.Generator().manual_seed(seed)
         if use_memory and memory_updater == "gru":
-            self.updater = GRUMemoryUpdater(dim_edge, dim_time, dim_memory,
-                                            gen, cd)
+            self.updater = GRUMemoryUpdater(dim_node, dim_edge, dim_time,
+                                            dim_memory, gen, cd)
         elif use_memory:
             self.updater = TransformerMemoryUpdater(
-                dim_edge, dim_time, dim_memory, att_head, gen, cd)
+                dim_node, dim_edge, dim_time, dim_memory, att_head, gen, cd)
         dim_in = dim_memory if use_memory else dim_node
         self.layers = nn.ModuleDict({f"l{l}h{h}": TemporalAttentionLayer(
             dim_in if l == 0 else dim_embed, dim_edge, dim_time, dim_embed,
@@ -120,12 +115,18 @@ class DGNN(nn.Module):
             if m is not self and hasattr(m, "cast_weights"):
                 m.cast_weights()
 
+    def node_feat_dtype(self, train: bool) -> torch.dtype:
+        """The dtype the trainer gathers node features in: f32 (the memory
+        updater adds them, or their projection, in f32)."""
+        return torch.float32
+
     def forward(self, mfgs: List[List[MFG]],
                 edge_feats: List[List[Optional[torch.Tensor]]],
                 mem_input: Optional[Dict[str, torch.Tensor]] = None,
                 train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                expansions=None):
+                expansions=None,
+                node_feats: Optional[List[Optional[torch.Tensor]]] = None):
         """Returns ``(pos_logits, neg_logits, last_updated)``.
 
         ``mfgs[l][h]`` is layer ``l``'s MFG in snapshot ``h``, innermost
@@ -138,9 +139,13 @@ class DGNN(nn.Module):
         not None, expands layer ``l``'s compact output to layer ``l + 1``'s
         instances: a ``("rows", inv, sidx, rank_sorted)`` spec (stacked
         [S, L] per snapshot, or one) or a ``("blocks", rank [S, B], cap,
-        fanout)`` spec.  ``train=True`` applies dropout, drawn from
-        ``generator`` (on the model's device); ``last_updated`` is
-        detached, and None without memory.
+        fanout)`` spec.  ``node_feats[h]`` is the innermost MFG's [B·(1+F),
+        dim_node] node features in snapshot ``h`` (None, or a list of None,
+        without node features, and on the memory dedup, whose updater
+        gathers them itself): layer 0's input without memory, else added to
+        the updater's output (``dgnn.py:155-159``).  ``train=True`` applies
+        dropout, drawn from ``generator`` (on the model's device);
+        ``last_updated`` is detached, and None without memory.
         """
         if train and (self.dropout > 0 or self.att_dropout > 0) \
                 and generator is None:
@@ -152,9 +157,9 @@ class DGNN(nn.Module):
                              "('blocks', ...)")
         S = self.num_snapshots
         last_updated = None
-        h_in: List[Optional[torch.Tensor]] = [None] * S
+        h_in = list(node_feats) if node_feats is not None else [None] * S
         if self.use_memory:
-            h0, last_updated = self.updater(mfgs[0][0], mem_input)
+            h0, last_updated = self.updater(mfgs[0][0], mem_input, h_in[0])
             h_in = [h0]
         out = []
         for l in range(self.num_layers):

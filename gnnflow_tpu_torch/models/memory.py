@@ -8,7 +8,8 @@ mailbox) and ``init_memory`` (``:50-208``), reset, backup and restore
 (``:286-311``), ``prepare_input_at`` and ``prepare_input`` with the
 meaning of ``prepare_input_bf16`` (``:314-433``), ``GRUMemoryUpdater`` on
 the per-instance and the dedup path (``:436-590``),
-``TransformerMemoryUpdater`` (``:593-753``) and ``update_mem_mail`` with
+``TransformerMemoryUpdater`` (``:593-753``), each with node features
+added to its output (``node_feat_proj``), and ``update_mem_mail`` with
 the circular slot write (``:756-875``).
 
 Unlike the JAX package, which builds a new state array every step, the
@@ -31,8 +32,8 @@ import torch
 from torch import nn
 
 from gnnflow_tpu_torch.common import MFG
-from gnnflow_tpu_torch.models.modules import (FusedGRUCell, MultiLinear,
-                                              TimeEncode)
+from gnnflow_tpu_torch.models.modules import (FusedGRUCell, Linear,
+                                              MultiLinear, TimeEncode)
 from gnnflow_tpu_torch.ops.apan_kv import apan_table_pull
 from gnnflow_tpu_torch.ops.segment import unique_keep_last_mask
 from gnnflow_tpu_torch.ops.segment_sum import expand_compact
@@ -113,7 +114,9 @@ class DedupMemoryInput:
     """Compact memory-updater input from the train step's exact (nid, ts)
     instance dedup (:func:`~gnnflow_tpu_torch.ops.dedup.dedup_instances`):
     the raw state (the updater pulls the compact rows itself), the unique
-    pairs and the maps that expand compact rows back to instances."""
+    pairs, the maps that expand compact rows back to instances and the
+    node-feature table, from which the updater gathers the unique pairs'
+    rows (``memory.py:545-577``; None without node features)."""
 
     state: MemoryState
     uniq_nids: torch.Tensor      # [cap] winner node ids
@@ -121,6 +124,7 @@ class DedupMemoryInput:
     inv: torch.Tensor            # [L] instance -> compact slot
     sidx: torch.Tensor           # [L] sorted position -> instance
     rank_sorted: torch.Tensor    # [L] int32 non-decreasing slots
+    node_feats: Optional[torch.Tensor] = None   # [N, dim_node] table
 
 
 @dataclass
@@ -163,6 +167,42 @@ def prepare_input(state: MemoryState, mfg: MFG,
     return prepare_input_at(state, mfg.all_nodes(), dtype)
 
 
+def _node_feat_proj(dim_node: int, dim_memory: int,
+                    gen: torch.Generator) -> Optional[Linear]:
+    """``node_feat_proj``, the f32 projection of node features to the
+    memory's width (``memory.py:488-500``); None without node features or
+    where the widths agree, which adds the features themselves."""
+    return Linear(dim_node, dim_memory, gen) \
+        if 0 < dim_node != dim_memory else None
+
+
+def _with_node_feats(updater: nn.Module, mfg: MFG, mem_input,
+                     updated: torch.Tensor,
+                     node_feats: Optional[torch.Tensor]):
+    """The updater's output ``h`` with node features added and the dst
+    rows' updated memory for write-back: ``(h, dst_updated)``.
+
+    On the dedup (``memory.py:545-577, 722-743``) the features of the
+    unique pairs are gathered from the table and added before the
+    expansion, whose backward is K4; else ``node_feats`` are the
+    instances' rows.  Without node features ``h`` is ``updated``."""
+    def add(nf):
+        proj = updater.node_feat_proj
+        return updated + (nf if proj is None else proj(nf))
+
+    b = mfg.num_dst
+    if not isinstance(mem_input, DedupMemoryInput):
+        with_nf = updater.dim_node > 0 and node_feats is not None
+        return add(node_feats) if with_nf else updated, updated[:b]
+    di = mem_input
+    if updater.dim_node == 0 or di.node_feats is None:
+        h = expand_compact(updated, di.inv, di.sidx, di.rank_sorted)
+        return h, h[:b]
+    nf = di.node_feats[di.uniq_nids.clamp(0, di.node_feats.shape[0] - 1)]
+    h = expand_compact(add(nf), di.inv, di.sidx, di.rank_sorted)
+    return h, updated[di.inv[:b]]
+
+
 class GRUMemoryUpdater(nn.Module):
     """GRU memory updater (``memory.py:436-590``, ``impl="pallas"``):
     ``dts = ts - mem_ts`` and ``h = GRU(mem, [mail | TimeEncode(dts)])`` in
@@ -170,29 +210,33 @@ class GRUMemoryUpdater(nn.Module):
     :class:`DedupMemoryInput`, over the compact rows, expanded back to the
     instances by :func:`~gnnflow_tpu_torch.ops.segment_sum.expand_compact`.
     With S mail slots the GRU reads the latest mail, slot ``(ptr - 1) mod
-    S`` (``memory.py:520-526``).
+    S`` (``memory.py:520-526``).  With node features (``dim_node > 0``)
+    the output adds them, through ``node_feat_proj`` where their width is
+    not the memory's; the write-back takes the memory without them.
 
     Returns ``(h, last_updated)``; ``last_updated`` holds the node ids,
     updated memory and timestamps of the dst rows for write-back, detached
     from autograd (``memory.py:583-589``)."""
 
-    def __init__(self, dim_edge: int, dim_time: int, dim_memory: int,
-                 gen: torch.Generator,
+    def __init__(self, dim_node: int, dim_edge: int, dim_time: int,
+                 dim_memory: int, gen: torch.Generator,
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if dim_time <= 0:
             raise NotImplementedError(
                 "a memory updater without time encoding is not on the TGN "
                 "path (ROADMAP.md, modules to port, item 14)")
+        self.dim_node = dim_node
         self.cell = FusedGRUCell(2 * dim_memory + dim_edge + dim_time,
                                  dim_memory, gen, compute_dtype)
         self.time_enc = TimeEncode(dim_time)
+        self.node_feat_proj = _node_feat_proj(dim_node, dim_memory, gen)
 
     def forward(self, mfg: MFG,
-                mem_input: Union[Dict[str, torch.Tensor], DedupMemoryInput]
+                mem_input: Union[Dict[str, torch.Tensor], DedupMemoryInput],
+                node_feats: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         all_ts = mfg.all_ts()
-        b = mfg.num_dst
         if isinstance(mem_input, DedupMemoryInput):
             # the compact pull is f32 even under bf16 compute
             # (memory.py:516); the GRU runs over all cap rows, unused slots
@@ -201,14 +245,15 @@ class GRUMemoryUpdater(nn.Module):
             pulled = prepare_input_at(di.state, di.uniq_nids)
             updated = self.cell(pulled["mem"], _latest_mail(pulled),
                                 di.uniq_ts - pulled["mem_ts"], self.time_enc)
-            h = expand_compact(updated, di.inv, di.sidx, di.rank_sorted)
         else:
-            h = self.cell(mem_input["mem"], _latest_mail(mem_input),
-                          all_ts - mem_input["mem_ts"], self.time_enc)
+            updated = self.cell(mem_input["mem"], _latest_mail(mem_input),
+                                all_ts - mem_input["mem_ts"], self.time_enc)
+        h, dst_updated = _with_node_feats(self, mfg, mem_input, updated,
+                                          node_feats)
         last_updated = {
             "last_updated_nid": mfg.root_nids,
-            "last_updated_memory": h[:b].detach(),
-            "last_updated_ts": all_ts[:b],
+            "last_updated_memory": dst_updated.detach(),
+            "last_updated_ts": all_ts[:mfg.num_dst],
         }
         return h, last_updated
 
@@ -247,10 +292,13 @@ class TransformerMemoryUpdater(nn.Module):
     even in training: the JAX ``DGNN`` calls it without ``train``
     (``dgnn.py:158-159``), so its ``nn.Dropout`` never fires.
 
+    Node features are added to the output as :class:`GRUMemoryUpdater`
+    adds them (``memory.py:716-752``).
+
     Returns ``(h, last_updated)`` as :class:`GRUMemoryUpdater` does."""
 
-    def __init__(self, dim_edge: int, dim_time: int, dim_memory: int,
-                 att_head: int, gen: torch.Generator,
+    def __init__(self, dim_node: int, dim_edge: int, dim_time: int,
+                 dim_memory: int, att_head: int, gen: torch.Generator,
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if dim_time <= 0:
@@ -259,6 +307,7 @@ class TransformerMemoryUpdater(nn.Module):
                 "(ROADMAP.md, modules to port, item 14)")
         if dim_memory % att_head:
             raise ValueError("dim_memory must be a multiple of att_head")
+        self.dim_node = dim_node
         self.dim_raw = 2 * dim_memory + dim_edge
         self.dim_memory, self.att_head = dim_memory, att_head
         self.compute_dtype = compute_dtype
@@ -267,6 +316,7 @@ class TransformerMemoryUpdater(nn.Module):
         self.w_q = MultiLinear(dim_memory, dim_memory, gen, compute_dtype)
         self.time_enc = TimeEncode(dim_time)
         self.layer_norm = nn.LayerNorm(dim_memory, eps=1e-5)
+        self.node_feat_proj = _node_feat_proj(dim_node, dim_memory, gen)
 
     def _table_kv(self, state: MemoryState, nids: torch.Tensor,
                   ts: torch.Tensor):
@@ -301,7 +351,8 @@ class TransformerMemoryUpdater(nn.Module):
 
     def forward(self, mfg: MFG,
                 mem_input: Union[Dict[str, torch.Tensor], RawMemoryInput,
-                                 DedupMemoryInput]
+                                 DedupMemoryInput],
+                node_feats: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         all_ts = mfg.all_ts()
         if isinstance(mem_input, DedupMemoryInput):
@@ -317,15 +368,12 @@ class TransformerMemoryUpdater(nn.Module):
                 mail, mail_ts = mail[:, None], mail_ts[:, None]
             tf = self.time_enc(all_ts[:, None] - mail_ts)
             kv = self.w_kv([mail, tf.to(self.compute_dtype or torch.float32)])
-        h = self.attend(mem, kv)
-        if isinstance(mem_input, DedupMemoryInput):
-            di = mem_input
-            h = expand_compact(h, di.inv, di.sidx, di.rank_sorted)
-        b = mfg.num_dst
+        h, dst_updated = _with_node_feats(self, mfg, mem_input,
+                                          self.attend(mem, kv), node_feats)
         last_updated = {
             "last_updated_nid": mfg.root_nids,
-            "last_updated_memory": h[:b].detach(),
-            "last_updated_ts": all_ts[:b],
+            "last_updated_memory": dst_updated.detach(),
+            "last_updated_ts": all_ts[:mfg.num_dst],
         }
         return h, last_updated
 

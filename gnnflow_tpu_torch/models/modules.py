@@ -61,16 +61,18 @@ def _uniform(shape, fan_in: int, gen: torch.Generator) -> nn.Parameter:
 
 class Linear(nn.Module):
     """``x @ kernel + bias`` with ``kernel`` [in, out], in f32
-    (``modules.py:34-62``)."""
+    (``modules.py:34-62``); ``use_bias=False`` drops the bias."""
 
     def __init__(self, in_features: int, out_features: int,
-                 gen: torch.Generator):
+                 gen: torch.Generator, use_bias: bool = True):
         super().__init__()
         self.kernel = _uniform((in_features, out_features), in_features, gen)
-        self.bias = _uniform((out_features,), in_features, gen)
+        self.bias = _uniform((out_features,), in_features, gen) \
+            if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.kernel + self.bias
+        y = x @ self.kernel
+        return y if self.bias is None else y + self.bias
 
 
 class MultiLinear(Linear):
@@ -83,8 +85,9 @@ class MultiLinear(Linear):
 
     def __init__(self, in_features: int, out_features: int,
                  gen: torch.Generator,
-                 compute_dtype: Optional[torch.dtype] = None):
-        super().__init__(in_features, out_features, gen)
+                 compute_dtype: Optional[torch.dtype] = None,
+                 use_bias: bool = True):
+        super().__init__(in_features, out_features, gen, use_bias)
         self.compute_dtype = compute_dtype
         self.cast_weights()
 
@@ -94,15 +97,24 @@ class MultiLinear(Linear):
         the weights change or move."""
         cd = self.compute_dtype or torch.float32
         self.register_buffer("kernel_c", self.kernel.detach().to(cd), persistent=False)
-        self.register_buffer("bias_c", self.bias.detach().to(cd), persistent=False)
+        self.register_buffer("bias_c", None if self.bias is None
+                             else self.bias.detach().to(cd), persistent=False)
+
+    def weights(self):
+        """``(kernel, bias)`` in the compute dtype: live casts of the
+        parameters while autograd records, else the copies (bias None
+        without one)."""
+        if not torch.is_grad_enabled():
+            return self.kernel_c, self.bias_c
+        cd = self.compute_dtype
+        if cd is None:
+            return self.kernel, self.bias
+        return self.kernel.to(cd), \
+            None if self.bias is None else self.bias.to(cd)
 
     def forward(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         cd = self.compute_dtype
-        if torch.is_grad_enabled():
-            kernel, bias = (self.kernel, self.bias) if cd is None \
-                else (self.kernel.to(cd), self.bias.to(cd))
-        else:
-            kernel, bias = self.kernel_c, self.bias_c
+        kernel, bias = self.weights()
         y = None
         off = 0
         for p in parts:
@@ -112,7 +124,7 @@ class MultiLinear(Linear):
             t = (p if cd is None else p.to(cd)) @ kernel[off:off + d]
             y = t if y is None else y + t
             off += d
-        return y + bias
+        return y if bias is None else y + bias
 
 
 class TimeEncode(nn.Module):

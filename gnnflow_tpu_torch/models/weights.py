@@ -1,5 +1,5 @@
-"""Carry a Flax parameter tree of ``gnnflow_tpu``'s DGNN into the port,
-and the port's parameters back out as such a tree.
+"""Carry a Flax parameter tree of ``gnnflow_tpu``'s DGNN, SAGE or GAT into
+the port, and the port's parameters back out as such a tree.
 
 The Flax tree (nested dicts of arrays, kernels ``[in, out]``) maps onto the
 port's parameter names one for one after renaming the auto-named Flax
@@ -9,8 +9,10 @@ transposed.  The tree:
 - ``updater/FusedGRUCell_0/{ih,hh}/{kernel,bias}``,
   ``updater/TimeEncode_0/{w,b}`` (TGN's GRU updater), or
   ``updater/{w_kv,w_q}/{kernel,bias}``, ``updater/TimeEncode_0/{w,b}``,
-  ``updater/LayerNorm_0/{scale,bias}`` (APAN's transformer updater); a
-  model without memory has no ``updater``
+  ``updater/LayerNorm_0/{scale,bias}`` (APAN's transformer updater); with
+  node features of another width than the memory's, also
+  ``updater/node_feat_proj/{kernel,bias}``; a model without memory has no
+  ``updater``
 - per attention layer ``l{l}h{h}`` (TGN ``l0h0``; TGAT ``l0h0``, ``l1h0``;
   DySAT ``l{0,1}h{0,1,2}``): ``{w_q,w_kv,w_out}/{kernel,bias}``,
   ``TimeEncode_0/{w,b}``, ``LayerNorm_0/{scale,bias}``; a layer without
@@ -18,6 +20,11 @@ transposed.  The tree:
   encoding nor node input (DySAT's ``l0h*``) no ``w_q`` either
 - ``combiner/{ih,hh}/{kernel,bias}`` (more than one snapshot)
 - ``edge_predictor/{src_fc,dst_fc,out_fc}/{kernel,bias}``
+- SAGE: per layer ``l{l}h0``, ``fc_self/{kernel,bias}`` and
+  ``fc_neigh/kernel`` (``mean``, ``pool``, which adds
+  ``fc_pool/{kernel,bias}``) or ``fc_neigh/{kernel,bias}`` (``gcn``);
+  GAT: per layer ``l{l}h0``, ``fc/kernel`` [in, H·D] and ``attn_l``,
+  ``attn_r`` [H, D]; both ``predictor/{fc0,fc1,fc2}/{kernel,bias}``
 
 The port names a layer ``layers.l{l}h{h}``.
 """
@@ -28,8 +35,7 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
-
-from gnnflow_tpu_torch.models.dgnn import DGNN
+from torch import nn
 
 _RENAME = {"FusedGRUCell_0": "cell", "TimeEncode_0": "time_enc",
            "LayerNorm_0": "layer_norm"}
@@ -67,10 +73,11 @@ def _flax_path(name: str) -> tuple:
 
 
 @torch.no_grad()
-def load_flax_params(model: DGNN, tree: Mapping) -> None:
-    """Copy a Flax DGNN parameter tree (nested dicts of numpy arrays) into
-    ``model`` (a :class:`~gnnflow_tpu_torch.models.dgnn.DGNN`) in place and
-    remake its compute-dtype weight copies.  Raises on a missing or extra
+def load_flax_params(model: nn.Module, tree: Mapping) -> None:
+    """Copy a Flax parameter tree (nested dicts of numpy arrays) into
+    ``model`` (a :class:`~gnnflow_tpu_torch.models.dgnn.DGNN`,
+    :class:`~gnnflow_tpu_torch.models.static.SAGE` or ``GAT``) in place
+    and remake its compute-dtype weight copies.  Raises on a missing or extra
     name or a shape mismatch."""
     params = dict(model.named_parameters())
     flat = {_port_name(p): a for p, a in _flatten(tree).items()}
@@ -87,10 +94,9 @@ def load_flax_params(model: DGNN, tree: Mapping) -> None:
     model.cast_weights()
 
 
-def flax_param_tree(model: DGNN) -> Dict[str, dict]:
-    """The model's parameters as a Flax DGNN parameter tree (nested dicts
-    of f32 numpy arrays, Flax names): the inverse of
-    :func:`load_flax_params`."""
+def flax_param_tree(model: nn.Module) -> Dict[str, dict]:
+    """The model's parameters as a Flax parameter tree (nested dicts of f32
+    numpy arrays, Flax names): the inverse of :func:`load_flax_params`."""
     tree: Dict[str, dict] = {}
     for name, p in model.named_parameters():
         path = _flax_path(name)

@@ -1,5 +1,5 @@
-"""Offline temporal link-prediction training of TGN, TGAT, DySAT or APAN
-on one card.
+"""Offline link-prediction training of TGN, TGAT, DySAT, APAN, GraphSAGE
+or GAT on one card.
 
     python -m gnnflow_tpu_torch.scripts.offline_edge_prediction \
         --model TGN --data SYNTHETIC --epoch 3 [--device cpu]
@@ -11,8 +11,9 @@ epoch start, memory reset at every epoch after the first, validation AP
 and AUC after every epoch, a best-AP checkpoint with a memory backup,
 early stopping, and a final test on the best checkpoint (the memory
 backup carries APAN's mail slots and their cursor).  ``--calibrate``
-calibrates the fast paths (the memory dedup of TGN and APAN, TGAT's
-layer-dedup ladder) on the last three train batches before training, and
+calibrates the fast paths (the memory dedup of TGN and APAN, the
+layer-dedup ladder of TGAT, GraphSAGE and GAT) on the last three train
+batches before training, and
 a config with
 windowed snapshots (DySAT: the block compaction's factor and the
 snapshot-dedup ladder) always does (``:209-219``); otherwise the trainer
@@ -27,8 +28,10 @@ that brings them.
 
 Datasets: the reference's ``edges.csv`` under ``--data-dir``;
 ``--data SYNTHETIC`` (or a dataset missing on disk) generates a
-deterministic synthetic stream.  The checkpoint is
-``<MODEL>_torch.ckpt`` at the repository root.
+deterministic synthetic stream, with 100-dim node features for the
+static models (``:115-119``).  A dataset's node features reach every
+model that has them.  The checkpoint is ``<MODEL>_torch.ckpt`` at the
+repository root.
 """
 from __future__ import annotations
 
@@ -48,7 +51,7 @@ from gnnflow_tpu_torch.data import (DstRandEdgeSampler, get_batches,
                                     make_synthetic_dataset)
 from gnnflow_tpu_torch.dynamic_graph import build_dynamic_graph
 from gnnflow_tpu_torch.models import memory as memory_lib
-from gnnflow_tpu_torch.models.factory import UNPORTED_MODELS, build_model
+from gnnflow_tpu_torch.models.factory import build_model
 from gnnflow_tpu_torch.train import Trainer
 from gnnflow_tpu_torch.utils import (EarlyStopMonitor,
                                      average_precision_score, roc_auc_score)
@@ -62,8 +65,8 @@ ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
 
 def make_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        description="offline TGN/TGAT/DySAT/APAN link-prediction "
-                    "training")
+        description="offline TGN/TGAT/DySAT/GRAPHSAGE/GAT/APAN "
+                    "link-prediction training")
     parser.add_argument("--model", choices=MODELS, required=True)
     parser.add_argument("--data", choices=DATASETS, required=True)
     parser.add_argument("--data-dir", default=None)
@@ -102,8 +105,6 @@ def _refuse_unported(parser, args) -> None:
     """Options of the JAX script that the port lacks: an error naming the
     ROADMAP.md item, never a silent default."""
     unported = [
-        (args.model.lower() in UNPORTED_MODELS, f"--model {args.model}",
-         UNPORTED_MODELS.get(args.model.lower())),
         (args.cache or args.pipeline or args.edge_cache_ratio
          or args.node_cache_ratio or args.features_on_host
          or args.cache_transfer_dtype != "float32",
@@ -130,9 +131,10 @@ def _load_data(args):
         except ValueError:
             logging.warning("dataset %s not found on disk; generating a "
                             "synthetic stream instead", args.data)
+    dim_node = 100 if args.model in ("GRAPHSAGE", "GAT") else 0
     train, val, test, full, nf, ef = make_synthetic_dataset(
         num_src=2000, num_dst=500, num_edges=args.synthetic_edges,
-        dim_edge=args.synthetic_dim_edge, seed=args.seed)
+        dim_edge=args.synthetic_dim_edge, dim_node=dim_node, seed=args.seed)
     return train, val, test, full, nf, ef, "synthetic"
 
 
@@ -183,8 +185,9 @@ def main(argv=None, checkpoint_path: Optional[str] = None) -> dict:
     batch_size = model_config["batch_size"]
     lr = args.lr * math.sqrt(args.num_devices)
     trainer = Trainer(model, lr=lr, device=device, **trainer_kwargs)
-    efs = None if edge_feats is None else \
-        torch.from_numpy(np.asarray(edge_feats, np.float32)).to(device)
+    efs, nfs = (None if t is None else
+                torch.from_numpy(np.asarray(t, np.float32)).to(device)
+                for t in (edge_feats, node_feats))
     dg = dgraph.device_graph(device)
     state = trainer.init_state(num_nodes, seed=args.seed)
 
@@ -207,7 +210,8 @@ def main(argv=None, checkpoint_path: Optional[str] = None) -> dict:
         scores, labels = [], []
         loss_sum = 0.0
         for batch in get_batches(data, batch_size, neg_sampler):
-            _, loss, pos, neg = trainer.eval_step(state, dg, efs, batch)
+            _, loss, pos, neg = trainer.eval_step(state, dg, efs, batch,
+                                                  node_feats=nfs)
             k = batch.num_valid
             logits = torch.cat([pos[:k], neg[:k]]).float().cpu().numpy()
             scores.append(1 / (1 + np.exp(-logits)))
@@ -230,7 +234,8 @@ def main(argv=None, checkpoint_path: Optional[str] = None) -> dict:
             memory_lib.reset_memory(state.memory)
         for batch in get_batches(train_data, batch_size, train_neg,
                                  num_chunks=args.num_chunks, rng=rng):
-            _, loss, _, _ = trainer.train_step(state, dg, efs, batch)
+            _, loss, _, _ = trainer.train_step(state, dg, efs, batch,
+                                               node_feats=nfs)
             total_samples += 3 * batch.num_valid
             it += 1
             if it % args.print_freq == 0:

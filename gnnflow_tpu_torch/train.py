@@ -1,15 +1,17 @@
-"""The train and eval steps of TGN, TGAT, DySAT and APAN link prediction.
+"""The train and eval steps of TGN, TGAT, DySAT, APAN, GraphSAGE and GAT
+link prediction.
 
 Counterpart of ``gnnflow_tpu/train.py``: ``link_pred_loss``
 (``:49-65``), ``_gather_rows`` and ``fetch_features`` (``:92-137``), and a
 ``Trainer`` with ``init_state``, ``train_step`` and ``eval_step``
 (``:1200-1265, 1371-1378, 1411-1417``).  A step samples the batch roots'
-neighbours over every layer (most recent or uniform), gathers edge
-features, pulls memory rows (TGN, APAN), runs the model (GRU or
-transformer memory update, temporal attention layers, edge predictor) and
-computes the loss; a train step then back-propagates and takes an Adam
-step; with memory, both write memory and mails back, computed with the
-parameters from before the step.
+neighbours over every layer (most recent or uniform; static models at the
+timestamp ``3.4e38``), gathers edge and node features, pulls memory rows
+(TGN, APAN), runs the model (GRU or transformer memory update, temporal
+attention layers, edge predictor; or the static layers and their
+predictor) and computes the loss; a train step then back-propagates and
+takes an Adam step; with memory, both write memory and mails back,
+computed with the parameters from before the step.
 PyTorch runs eagerly, so there is no ``jit``.
 
 Three exact fast paths are ported, each a Python branch on a count where
@@ -19,7 +21,8 @@ the JAX package has ``lax.cond``, so one host sync per decision:
   with memory, GRU or transformer, calibrated on the first train step
   (``:451-623, 719-750``);
 - the layer dedup (``layer_dedup``, ``_layer_dedup_outputs``,
-  ``:992-1091``) for models of two or more layers without memory (TGAT):
+  ``:992-1091``) for models of two or more layers without memory (TGAT,
+  and the static GraphSAGE and GAT):
   a deeper layer samples only the unique (nid, ts) roots of its parent
   layer and its output expands back at the boundary.  A ladder of tiers
   takes the tightest cap that fits at the first boundary; deeper
@@ -58,6 +61,7 @@ from gnnflow_tpu_torch.data import Batch
 from gnnflow_tpu_torch.dynamic_graph import DeviceGraph
 from gnnflow_tpu_torch.models import memory as memory_lib
 from gnnflow_tpu_torch.models.dgnn import DGNN
+from gnnflow_tpu_torch.models.static import GAT, SAGE
 from gnnflow_tpu_torch.ops.dedup import dedup_instances
 from gnnflow_tpu_torch.ops.sampling import (boundary_overflow,
                                              sample_deeper_compact,
@@ -67,6 +71,10 @@ from gnnflow_tpu_torch.ops.sampling import (boundary_overflow,
 # the sampling generator's seed is this plus init_state's seed, so its
 # draws are not the dropout generator's
 SAMPLE_SEED_OFFSET = 2 ** 32
+
+# the roots' timestamp of static sampling (``train.py:1206-1207``), which
+# is not STATIC_TS, the float32 maximum
+STATIC_SAMPLE_TS = float(np.float32(3.4e38))
 
 
 @dataclass
@@ -125,6 +133,19 @@ def fetch_features(mfgs: List[List[MFG]],
     """Per-layer, per-snapshot [B, F, dim_edge] edge features."""
     return [[_gather_rows(edge_feats, m.nbr_eids, m.nbr_mask)
              for m in layer] for layer in mfgs]
+
+
+def fetch_node_features(mfgs: List[List[MFG]],
+                        node_feats: Optional[torch.Tensor],
+                        dtype: torch.dtype = torch.float32):
+    """Per-snapshot [B·(1+F), dim_node] node features of the innermost
+    MFGs' instances, invalid rows zero (``train.py:124-128``), gathered
+    from the table cast to ``dtype``; None without a table."""
+    if node_feats is None:
+        return None
+    table = node_feats.to(dtype)
+    return [_gather_rows(table, m.all_nodes(), m.all_mask())
+            for m in mfgs[0]]
 
 
 def dedup_cap(factor: float, num_all: int) -> int:
@@ -225,16 +246,18 @@ def _uniq_pairs_frac(layer: Sequence[MFG]) -> float:
 
 
 class Trainer:
-    """Runs train and eval steps of a :class:`DGNN` over a
-    :class:`DeviceGraph`.  The optimizer is Adam at ``lr`` with optax's
-    defaults (``train.py:262``).
+    """Runs train and eval steps of a :class:`DGNN`, :class:`SAGE` or
+    :class:`GAT` over a :class:`DeviceGraph`.  The optimizer is Adam at
+    ``lr`` with optax's defaults (``train.py:262``).
 
     ``fanouts`` has one entry per model layer, outermost first;
     ``sample_strategy`` is ``"recent"`` or ``"uniform"`` (draws from the
     state's sampling generator).  ``num_snapshots`` windows of
     ``snapshot_time_window`` each end at a root's timestamp (one snapshot:
     the window ``[ts - W, ts)``, or the full history at 0); ``prop_time``
-    gives neighbours their root's timestamp.
+    gives neighbours their root's timestamp.  ``is_static`` samples the
+    batch roots at the timestamp ``3.4e38`` (deeper layers at their parent
+    edges' timestamps), as the static models are trained.
 
     ``dedup_factor`` sizes the compact table of the memory dedup as a
     fraction of the instances (``None``: off; models with memory only).
@@ -242,10 +265,11 @@ class Trainer:
     which it pulls pre-projected K/V rows, instead of per-instance rows
     (``"auto"``: on for the transformer updater, ``train.py:232-241``).
     ``layer_dedup`` is the layer (or, with windowed snapshots, snapshot)
-    dedup's factor or ascending ladder of factors (``None``: off; models
-    of two or more layers without memory).  ``model_compact`` runs the
-    block compaction of windowed snapshots at ``compact_factor``, which
-    with windowed snapshots also compacts the padded path's sampling.
+    dedup's factor or ascending ladder of factors (``None``: off; DGNNs of
+    two or more layers without memory, not static, and static SAGE and GAT
+    of two or more layers).  ``model_compact`` runs the block compaction
+    of windowed snapshots at ``compact_factor``, which with windowed
+    snapshots also compacts the padded path's sampling.
     ``"auto"``: ``compact_factor`` 0.25 and ``model_compact`` on for
     windowed snapshots and two or more layers without memory, until
     :meth:`calibrate` measures the stream, which the first
@@ -258,7 +282,7 @@ class Trainer:
                  prop_time: bool = False, lr: float = 1e-4,
                  compact_factor="auto", dedup_factor="auto",
                  model_compact="auto", layer_dedup="auto",
-                 apan_table="auto", device="cuda"):
+                 apan_table="auto", is_static: bool = False, device="cuda"):
         self.fanouts = tuple(int(f) for f in fanouts)
         if len(self.fanouts) != model.num_layers:
             raise ValueError(f"{len(self.fanouts)} fanouts for a model of "
@@ -273,6 +297,7 @@ class Trainer:
         self.num_snapshots = int(num_snapshots)
         self.window = float(snapshot_time_window)
         self.prop_time = bool(prop_time)
+        self.is_static = bool(is_static)
         self.model = model
         self.lr = lr
         self.device = resolve_device(device)
@@ -296,7 +321,8 @@ class Trainer:
         if self.layer_dedup is not None and not self._layer_dedup_ok():
             raise ValueError("layer_dedup requires a DGNN of two or more "
                              "layers without memory (TGAT), with one "
-                             "snapshot or windowed ones (DySAT)")
+                             "snapshot or windowed ones (DySAT), or a static "
+                             "SAGE or GAT of two or more layers")
         self._calibrated = not (
             (windowed and (self._auto["compact"]
                            or self._auto["layer_dedup"]))
@@ -309,8 +335,15 @@ class Trainer:
 
     def _layer_dedup_ok(self) -> bool:
         """Does the layer dedup apply (``train.py:291-310``): two or more
-        layers, no memory, and one snapshot or windowed ones."""
-        return (len(self.fanouts) >= 2 and not self.model.use_memory
+        layers, and a DGNN without memory, not static, with one snapshot
+        or windowed ones, or a static SAGE or GAT.  Static deeper layers
+        sample at their parent edges' timestamps, so the key stays (nid,
+        ts)."""
+        if len(self.fanouts) < 2:
+            return False
+        if isinstance(self.model, (SAGE, GAT)):
+            return self.is_static
+        return (not self.is_static and not self.model.use_memory
                 and (self.num_snapshots == 1 or self.window > 0))
 
     def init_state(self, num_nodes: int, seed: int = 0) -> TrainState:
@@ -474,14 +507,15 @@ class Trainer:
         state.layer_dedup_n_uniq = n_uniqs
         return mfgs, exps, take[0]
 
-    def _mem_input(self, state: TrainState, mfg: MFG):
+    def _mem_input(self, state: TrainState, mfg: MFG,
+                   node_feats: Optional[torch.Tensor]):
         """The memory updater's input (``train.py:834-904``): the dedup's
-        compact input when the factor is set and the batch's unique pairs
-        fit its cap; else the raw state for the transformer updater's
-        table path (``apan_table``); else the per-instance pull, in bf16
-        under bf16 compute when the node table is small next to the
-        instance count (``:851-858``; timestamps stay f32).  Records the
-        unique count in ``state.dedup_n_uniq``."""
+        compact input, with the node-feature table, when the factor is set
+        and the batch's unique pairs fit its cap; else the raw state for
+        the transformer updater's table path (``apan_table``); else the
+        per-instance pull, in bf16 under bf16 compute when the node table
+        is small next to the instance count (``:851-858``; timestamps stay
+        f32).  Records the unique count in ``state.dedup_n_uniq``."""
         memory = state.memory
         state.dedup_n_uniq = None
         if self.dedup_factor:
@@ -493,7 +527,8 @@ class Trainer:
             if state.dedup_n_uniq <= cap:
                 return memory_lib.DedupMemoryInput(
                     state=memory, uniq_nids=uniq_nid, uniq_ts=uniq_ts,
-                    inv=inv, sidx=sidx, rank_sorted=rank_sorted)
+                    inv=inv, sidx=sidx, rank_sorted=rank_sorted,
+                    node_feats=node_feats)
         if self.apan_table and self.model.memory_updater == "transformer":
             return memory_lib.RawMemoryInput(memory)
         if self.model.compute_dtype == "bfloat16" \
@@ -504,10 +539,13 @@ class Trainer:
     @torch.no_grad()
     def _inputs(self, state: TrainState, dg: DeviceGraph,
                 edge_feats: Optional[torch.Tensor], batch: Batch,
-                train: bool = False):
+                train: bool = False,
+                node_feats: Optional[torch.Tensor] = None):
         """Sample, gather edge features and pull memory rows for a batch:
         ``(mfgs, efs, mem_input, eids, valid, expansions)``; ``mem_input``
         is None without memory, ``expansions`` None on the padded path.
+        Edge features are not gathered for a model without them: the JAX
+        step drops that gather as dead code.
         The path is the first that is set of the snapshot dedup, the block
         compaction, the layer dedup and the padded path
         (``train.py:1209-1236``).  A train batch on either dedup counts
@@ -515,6 +553,8 @@ class Trainer:
         dev = self.device
         target_nodes = torch.from_numpy(batch.target_nodes).to(dev)
         ts = torch.from_numpy(batch.ts).to(dev)
+        if self.is_static:
+            ts = torch.full_like(ts, STATIC_SAMPLE_TS)
         eids = torch.from_numpy(batch.eids).to(dev)
         valid = torch.zeros(batch.batch_size, dtype=torch.bool)
         valid[: batch.num_valid] = True
@@ -536,10 +576,21 @@ class Trainer:
             state.tier_takes[take] += 1
         if expansions is not None and all(e is None for e in expansions):
             expansions = None
-        efs = fetch_features(mfgs, edge_feats)
-        mem_input = self._mem_input(state, mfgs[0][0]) \
+        efs = fetch_features(mfgs, edge_feats if self.model.dim_edge
+                             else None)
+        mem_input = self._mem_input(state, mfgs[0][0], node_feats) \
             if self.model.use_memory else None
         return mfgs, efs, mem_input, eids, valid, expansions
+
+    @torch.no_grad()
+    def _node_inputs(self, mfgs, mem_input, node_feats, train: bool):
+        """The innermost MFGs' node features, in the dtype the model asks
+        for; None where the memory dedup's updater gathers them itself
+        (``train.py:886-894``)."""
+        if isinstance(mem_input, memory_lib.DedupMemoryInput):
+            return None
+        return fetch_node_features(mfgs, node_feats,
+                                   self.model.node_feat_dtype(train))
 
     @torch.no_grad()
     def _write_back(self, state: TrainState, last, edge_feats, eids,
@@ -554,12 +605,14 @@ class Trainer:
             edge_feats=tef, valid=valid)
 
     def train_step(self, state: TrainState, dg: DeviceGraph,
-                   edge_feats: Optional[torch.Tensor], batch: Batch):
-        """One train step (``train.py:1371-1378``): forward with dropout,
-        loss, backward, an Adam step, then (with memory) the write-back of
-        memory computed with the pre-step parameters.  Updates the model's
-        parameters, ``state`` and the optimizer in place and remakes the
-        model's compute-dtype weight copies.
+                   edge_feats: Optional[torch.Tensor], batch: Batch, *,
+                   node_feats: Optional[torch.Tensor] = None):
+        """One train step (``train.py:1371-1378``) over the edge-feature
+        table and the node-feature table (None: without): forward with
+        dropout, loss, backward, an Adam step, then (with memory) the
+        write-back of memory computed with the pre-step parameters.
+        Updates the model's parameters, ``state`` and the optimizer in
+        place and remakes the model's compute-dtype weight copies.
 
         The first call calibrates the knobs left to it (the JAX
         ``train_step``; ``eval_step`` never calibrates).
@@ -568,10 +621,11 @@ class Trainer:
         detached."""
         self._maybe_auto_calibrate(dg, batch.target_nodes, batch.ts)
         mfgs, efs, mem_input, eids, valid, expansions = self._inputs(
-            state, dg, edge_feats, batch, train=True)
+            state, dg, edge_feats, batch, train=True, node_feats=node_feats)
+        nfs = self._node_inputs(mfgs, mem_input, node_feats, True)
         pos, neg, last = self.model(mfgs, efs, mem_input, train=True,
                                     generator=state.dropout_gen,
-                                    expansions=expansions)
+                                    expansions=expansions, node_feats=nfs)
         loss = link_pred_loss(pos, neg, valid)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -583,16 +637,18 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, dg: DeviceGraph,
-                  edge_feats: Optional[torch.Tensor], batch: Batch):
+                  edge_feats: Optional[torch.Tensor], batch: Batch, *,
+                  node_feats: Optional[torch.Tensor] = None):
         """One eval step, on the layer dedup where it is set, as the JAX
         ``_step`` (``train.py:1227-1233``); updates ``state.memory`` in
         place.
 
         Returns ``(state, loss, pos_logits [B], neg_logits [B])``."""
         mfgs, efs, mem_input, eids, valid, expansions = self._inputs(
-            state, dg, edge_feats, batch)
+            state, dg, edge_feats, batch, node_feats=node_feats)
+        nfs = self._node_inputs(mfgs, mem_input, node_feats, False)
         pos, neg, last = self.model(mfgs, efs, mem_input,
-                                    expansions=expansions)
+                                    expansions=expansions, node_feats=nfs)
         loss = link_pred_loss(pos, neg, valid)
         self._write_back(state, last, edge_feats, eids, valid)
         return state, loss, pos[:, 0], neg[:, 0]
@@ -663,10 +719,12 @@ class Trainer:
         largest over the snapshots, else None."""
         dev = self.device
         gen = torch.Generator(device=dev).manual_seed(0)
+        ts = np.asarray(ts, np.float32)
+        if self.is_static:               # every probe, shifted or not
+            ts = np.full_like(ts, STATIC_SAMPLE_TS)
         mfgs = self._sample(
             gen, dg, torch.from_numpy(np.asarray(roots, np.int64)).to(dev),
-            torch.from_numpy(np.asarray(ts, np.float32)).to(dev),
-            compact=False)
+            torch.from_numpy(ts).to(dev), compact=False)
         occ = [m.nbr_mask.float().mean().item()
                for layer in mfgs[1:] for m in layer]
         u = _uniq_pairs_frac(mfgs[0][:1]) if self.model.use_memory \

@@ -582,7 +582,7 @@ def test_build_model_dysat():
                             172, seed=1, device="cpu")
     assert kw == {"fanouts": [10, 10], "sample_strategy": "uniform",
                   "num_snapshots": 3, "snapshot_time_window": 10000,
-                  "prop_time": True}
+                  "prop_time": True, "is_static": False}
     assert sorted(model.layers) == [f"l{l}h{h}" for l in range(2)
                                     for h in range(3)]
     for h in range(3):

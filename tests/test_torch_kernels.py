@@ -625,3 +625,29 @@ def test_segment_sum_kernel_at_tgat_boundary_on_card(cuda):
     abs_sum = sorted_segment_sum_ref(dhs.abs().double(), seg, cap)
     assert (err / abs_sum.clamp_min(1e-300)).max().item() <= 1e-5
     assert not got[cap - 7:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,D", [(192_000, 100), (132_000, 200)],
+                         ids=["graphsage", "gat"])
+def test_segment_sum_kernel_at_static_boundaries_on_card(cuda, L, D):
+    """K4 at the static models' layer boundaries at batch 4000 and the
+    layer dedup's factor 0.95: GraphSAGE's 12,000 roots x 16 instances of
+    width 100, and GAT's 12,000 x 11 of width 200 (its two heads' flat
+    output), each into the 0.95 tier's cap."""
+    from gnnflow_tpu_torch.train import tier_caps
+    (cap,) = tier_caps([0.95], L)
+    seg, dhs = _segments(L, cap, D, seed=L + D)
+    seg, dhs = torch.from_numpy(seg).to(cuda), torch.from_numpy(dhs).to(cuda)
+    before = sorted_segment_sum.launches
+    got = sorted_segment_sum(dhs, seg, cap)
+    again = sorted_segment_sum(dhs, seg, cap)
+    torch.cuda.synchronize()
+    assert sorted_segment_sum.launches == before + 2
+    assert torch.equal(got, again)           # no atomics
+    want = sorted_segment_sum_ref(dhs.double(), seg, cap)
+    err = (got.double() - want).abs()
+    assert (err.max() / want.abs().max()).item() <= 1e-5
+    abs_sum = sorted_segment_sum_ref(dhs.abs().double(), seg, cap)
+    assert (err / abs_sum.clamp_min(1e-300)).max().item() <= 1e-5
+    assert not got[cap - 7:].any()

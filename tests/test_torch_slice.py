@@ -111,9 +111,9 @@ def test_weight_loader_rejects_other_trees():
                 "edge_predictor.src_fc.kernel"]}}}})
 
 
-@pytest.mark.parametrize("kw", [dict(dim_node=4),
+@pytest.mark.parametrize("kw", [dict(num_layers=3),
                                 dict(memory_updater="transformer",
-                                     dim_node=4),
+                                     dim_time=0),
                                 dict(dim_time=0),
                                 dict(num_layers=2)])
 def test_unported_configs_raise(kw):
