@@ -48,7 +48,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
    per-instance run.  TGAT in f32 as well (the widths of phase 9, dropout
    0, the same uniform draws on both sides): eval logits, then train
    steps on a two-tier layer-dedup ladder; and DySAT the same way (the
-   widths of phase 10), train steps on a two-tier snapshot-dedup ladder.
+   widths of phase 10), train steps on a two-tier snapshot-dedup ladder;
+   and the serving path of phase 13 in f32 (an ``embed_step`` and a
+   prequential sequence).
 9. tgat: TGAT as ``bench.py:127-160`` runs it (REDDIT defaults through
    ``build_model``: 2 layers, fanouts [10, 10], uniform sampling, no
    memory, dropout and attention dropout 0.1, bf16 compute, 172-dim edge
@@ -106,6 +108,23 @@ Phases (each prints one line; any failure raises and exits non-zero):
    rows of width 100; GAT: 132,000 of width 200) against its plain
    version.  Phase 8's CPU-card check holds both in f32 too: eval, and 4
    train steps on a two-tier layer-dedup ladder.
+13. online: the port's online script
+   (``gnnflow_tpu_torch.scripts.online_edge_prediction``) serving TGN at
+   the REDDIT defaults in bf16 on the same stream without node features,
+   written to ``build/`` by ``write_synthetic_dataset``: phase 1 on 30%
+   of it (one epoch), then 50 chunks, each scored prequentially (K1, K3),
+   ingested, and every 10th followed by the eviction of the edges older
+   than a quarter of the stream's time span and replay retraining (K1,
+   K2); the device view must be uploaded once per change of the store.
+   Logs eval ms per batch, ingest, eviction and retrain ms per step per
+   chunk; a second call resumes from the phase-1 checkpoint. Phase 8's
+   CPU-card check holds an f32 ``embed_step`` and a prequential eval →
+   ingest → evict sequence from one state per chunk.
+14. inference: the port's inference script on that dataset: TGN from the
+   online phase-1 checkpoint with its embeddings dumped (K1 and K3 in the
+   eval and ``embed_step`` batches; the npz's keys, shapes and node ids
+   are checked), then DySAT from random init at batch 4000 over the
+   windows 0 and 5000 (K3).
 
 Then one JSON line with every kernel's numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.
@@ -2238,6 +2257,302 @@ def phase_static(torch, kernels, stream):
                 **out)
 
 
+ONLINE_STEPS, RETRAIN_EVERY = 50, 10
+
+
+def _launches_by_method(kernels, cls, names):
+    """Wrap ``cls``'s methods ``names`` so that each call adds the kernel
+    launches made inside it to that method's counts (from 0); returns the
+    counts and a function that puts the methods back."""
+    counts = {n: {k: 0 for k in kernels} for n in names}
+    orig = {n: getattr(cls, n) for n in names}
+
+    def wrap(name):
+        fn = orig[name]
+
+        def run(*args, **kwargs):
+            before = {k: f.launches for k, f in kernels.items()}
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                for k, f in kernels.items():
+                    counts[name][k] += f.launches - before[k]
+        return run
+
+    for n in names:
+        setattr(cls, n, wrap(n))
+    return counts, lambda: [setattr(cls, n, f) for n, f in orig.items()]
+
+
+def _online_dataset():
+    """The REDDIT-shaped stream of bench.py:221-227 without node features
+    (as bench.py:262-267 runs TGN), written by ``write_synthetic_dataset``
+    under ``build/``: ``(data_dir, edges)``."""
+    from gnnflow_tpu_torch.data import load_dataset, write_synthetic_dataset
+    from gnnflow_tpu_torch.ops import _build
+    data_dir = os.path.join(_build.BUILD_DIR, "online_data")
+    write_synthetic_dataset(os.path.join(data_dir, "REDDIT"),
+                            num_src=10_000, num_dst=984, num_edges=672_447,
+                            dim_edge=172, seed=42, time_scale=4.0)
+    return data_dir, load_dataset("REDDIT", data_dir)
+
+
+def phase_online(torch, kernels):
+    """TGN served online through the port's online script at the REDDIT
+    defaults (batch 4000, memory, time and embedding dims 100, 2 heads,
+    fanout 10 recent, 172-dim edge features, bf16 compute): phase 1 on 30%
+    of the stream, then 50 chunks scored prequentially, each ingested,
+    and every 10th followed by the sliding window's eviction (a quarter
+    of the stream's time span) and replay retraining. Then a second call
+    that resumes from the phase-1 checkpoint."""
+    import numpy as np
+    from gnnflow_tpu_torch.ops import _build
+    from gnnflow_tpu_torch.scripts import online_edge_prediction as online
+    from gnnflow_tpu_torch.train import Trainer
+    t0 = time.perf_counter()
+    data_dir, (_, _, test, full) = _online_dataset()
+    write_s = time.perf_counter() - t0
+    window = float(full.time[-1] - full.time[0]) / 4
+    ckpt = os.path.join(_build.BUILD_DIR, "TGN_torch_online_phase1.ckpt")
+    if os.path.exists(ckpt):
+        os.remove(ckpt)
+    base = ["--model", "TGN", "--data", "REDDIT", "--data-dir", data_dir,
+            "--epoch", "1", "--phase2-steps", str(ONLINE_STEPS),
+            "--compute-dtype", "bfloat16"]
+    argv = base + ["--retrain-interval", str(RETRAIN_EVERY),
+                   "--time-window", repr(window)]
+    _reset(kernels)
+    counts, restore = _launches_by_method(kernels, Trainer,
+                                          ["eval_step", "train_step"])
+    try:
+        t0 = time.perf_counter()
+        out = online.main(argv, checkpoint_path=ckpt)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        restore()
+    launches = {"online_eval": counts["eval_step"],
+                "online_retrain": counts["train_step"]}
+    scores = out["aps"] + out["aucs"]
+    chunk = (len(full) - int(0.3 * len(full))) // ONLINE_STEPS
+    n_eval = -(-chunk // min(4000, max(256, chunk)))
+    bad = []
+    if len(out["aps"]) != ONLINE_STEPS or not all(
+            np.isfinite(x) and 0.0 < x <= 1.0 for x in scores):
+        bad.append(f"APs/AUCs {scores}")
+    if not out["evicted"] or out["evicted"][0] <= 0:
+        bad.append(f"evicted {out['evicted']}")
+    if out["uploads"] != out["store_changes"] + 1:
+        bad.append(f"{out['uploads']} device views for "
+                   f"{out['store_changes']} store changes")
+    ev, tr = launches["online_eval"], launches["online_retrain"]
+    if not (ev["gru_memory_fused"] and ev["neighborhood_attention"]
+            and tr["gru_memory_fused"] and tr["gru_memory_fused_bwd"]):
+        bad.append(f"launches {launches}")
+    if bad:
+        raise AssertionError(f"online: {bad}")
+
+    mean = statistics.mean
+    res = dict(seconds=seconds, dataset_write_s=write_s, window=window,
+               phase1_s=out["phase1_s"], chunks=len(out["aps"]),
+               eval_batches_per_chunk=n_eval,
+               eval_ms_per_batch=mean(out["eval_ms"]),
+               ingest_ms=mean(out["ingest_ms"]),
+               refresh_ms=mean(out["refresh_ms"]),
+               evict_ms=out["evict_ms"], evicted=out["evicted"],
+               retrain_ms_per_step=out["retrain_ms"],
+               mean_ap=mean(out["aps"]), mean_auc=mean(out["aucs"]),
+               uploads=out["uploads"], store_changes=out["store_changes"],
+               launches=launches,
+               per_chunk=dict(eval_ms_per_batch=out["eval_ms"],
+                              ingest_ms=out["ingest_ms"], ap=out["aps"],
+                              auc=out["aucs"]))
+    _log("online", **res)
+
+    # the second call resumes from the checkpoint: no phase 1
+    t0 = time.perf_counter()
+    again = online.main(base + ["--retrain-interval", "0"],
+                        checkpoint_path=ckpt)
+    torch.cuda.synchronize()
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)["params"]
+    same = all(torch.equal(again["params"][k].cpu(), v)
+               for k, v in saved.items())
+    if not (again["resumed"] and again["phase1_s"] == 0 and same):
+        raise AssertionError(f"online resume: resumed {again['resumed']}, "
+                             f"parameters equal {same}")
+    res["resume"] = dict(seconds=time.perf_counter() - t0,
+                         resumed=again["resumed"],
+                         params_equal_checkpoint=same,
+                         mean_ap=mean(again["aps"]),
+                         eval_ms_per_batch=mean(again["eval_ms"]))
+    _log("online", path="resume", **res["resume"])
+    return dict(res, data_dir=data_dir, ckpt=ckpt, test=test)
+
+
+def phase_inference(torch, kernels, on):
+    """The port's inference script on the online phase's dataset: TGN
+    from the phase-1 checkpoint with its embeddings dumped; then DySAT
+    (REDDIT defaults, bf16, batch 4000) from random init over the windows
+    0 (the config's 10000) and 5000."""
+    import numpy as np
+    from gnnflow_tpu_torch.ops import _build
+    from gnnflow_tpu_torch.scripts import inference
+    from gnnflow_tpu_torch.train import Trainer
+    npz = os.path.join(_build.BUILD_DIR, "TGN_online_embeddings.npz")
+    absent = os.path.join(_build.BUILD_DIR, "DySAT_absent.ckpt")
+    for p in (npz, absent):
+        if os.path.exists(p):
+            os.remove(p)
+    common = ["--data", "REDDIT", "--data-dir", on["data_dir"],
+              "--compute-dtype", "bfloat16"]
+    runs = {"inference": ["--model", "TGN", "--checkpoint", on["ckpt"],
+                          "--dump-embeddings", npz, *common],
+            "inference_dysat": ["--model", "DySAT", "--batch-size", "4000",
+                                "--time-windows", "0", "5000",
+                                "--checkpoint", absent, *common]}
+    launches, res = {}, {}
+    for path, argv in runs.items():
+        _reset(kernels)
+        counts, restore = _launches_by_method(kernels, Trainer,
+                                              ["eval_step", "embed_step"])
+        try:
+            t0 = time.perf_counter()
+            out = inference.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            restore()
+        launches[path] = {k: counts["eval_step"][k] + counts["embed_step"][k]
+                          for k in kernels}
+        res[path] = dict(seconds=seconds, launches=launches[path],
+                         by_step=counts, **out)
+        _log("inference", path=path, **res[path])
+
+    test, bad = on["test"], []
+    tgn, dys = res["inference"], res["inference_dysat"]
+    with np.load(npz) as d:
+        keys = sorted(d.files)
+        emb, nids = d["embeddings_w0"], d["nids_w0"]
+        want = np.concatenate([np.concatenate([test.src[lo: lo + 4000],
+                                               test.dst[lo: lo + 4000]])
+                               for lo in range(0, len(test), 4000)])
+        labels_ok = d["labels_w0"].shape == d["scores_w0"].shape \
+            == (2 * len(test),)
+    if keys != ["embeddings_w0", "labels_w0", "nids_w0", "scores_w0"] \
+            or emb.shape != (2 * len(test), 100) \
+            or not np.isfinite(emb).all() or not emb.std() > 0 \
+            or not np.array_equal(nids, want) or not labels_ok:
+        bad.append(f"npz keys {keys}, embeddings {emb.shape}")
+    if not tgn["loaded"] or dys["loaded"] or dys["windows"] != [0.0, 5000.0]:
+        bad.append("checkpoints")
+    for r in (tgn, dys):
+        if not all(np.isfinite(x) and 0.0 < x <= 1.0
+                   for x in r["ap"] + r["auc"]):
+            bad.append(f"AP/AUC {r['ap']} {r['auc']}")
+    t_l, d_l = launches["inference"], launches["inference_dysat"]
+    if not (t_l["gru_memory_fused"] and t_l["neighborhood_attention"]
+            and tgn["by_step"]["embed_step"]["neighborhood_attention"]
+            and d_l["neighborhood_attention"] and not d_l["gru_memory_fused"]):
+        bad.append(f"launches {launches}")
+    if bad:
+        raise AssertionError(f"inference: {bad}")
+    _log("inference", embeddings=list(emb.shape),
+         embeddings_std=float(emb.std()), test_edges=len(test))
+    return dict(launches=launches, **res)
+
+
+def _self_check_online(torch, card, full, efs, num_nodes, failed):
+    """TGN in f32, CPU (plain versions) against card (kernels), from one
+    state: one ``embed_step`` after an eval batch (the card takes the
+    CPU's memory first), which must leave memory as it was; then a
+    prequential sequence on stores of the stream's first 3000 edges: per
+    chunk of 500 the card takes the CPU's memory, both score the chunk,
+    ingest it and evict the edges older than 4000 before its end. Logits,
+    embeddings and memory to the f32 eval tolerance; equal evictions and
+    device views; one view upload per chunk scored after a change."""
+    from gnnflow_tpu_torch.data import DstRandEdgeSampler, get_batches
+    from gnnflow_tpu_torch.dynamic_graph import DynamicGraph
+    from gnnflow_tpu_torch.models import memory as memory_lib
+    from gnnflow_tpu_torch.models.dgnn import DGNN
+    from gnnflow_tpu_torch.train import Trainer
+    tol, head, size, chunks = 1e-4, 3000, 500, 3
+    cfg = {**TGN, "dropout": 0.0, "att_dropout": 0.0}
+    devs = {"cpu": "cpu", "card": card}
+    sides = {}
+    for r, d in devs.items():
+        g = DynamicGraph(initial_pool_size=1 << 16, minimum_block_size=62)
+        g.add_edges(full.src[:head], full.dst[:head], full.time[:head],
+                    full.eid[:head], add_reverse=True)
+        tr = Trainer(DGNN(dim_edge=172, seed=1, device=d, **cfg),
+                     fanouts=[10], device=d)
+        sides[r] = dict(g=g, tr=tr, st=tr.init_state(num_nodes), d=d)
+
+    def sync():
+        cpu, dev = sides["cpu"]["st"].memory, sides["card"]["st"].memory
+        for k, v in memory_lib.backup_memory(cpu).items():
+            getattr(dev, k).copy_(v)
+
+    def mem_err():
+        a, b = (torch.cat([s["st"].memory.node_memory,
+                           s["st"].memory.mailbox], 1).cpu()
+                for s in sides.values())
+        return (a - b).abs().max().item()
+
+    b0, b1 = list(get_batches(full[head - 1000: head], size,
+                              DstRandEdgeSampler(full.dst, seed=5)))
+    embeds, unchanged = {}, True
+    for s in sides.values():
+        s["tr"].eval_step(s["st"], s["g"].device_graph(s["d"]), efs[s["d"]],
+                          b0)
+    sync()
+    for r, s in sides.items():
+        before = memory_lib.backup_memory(s["st"].memory)
+        embeds[r] = s["tr"].embed_step(s["st"], s["g"].device_graph(s["d"]),
+                                       efs[s["d"]], b1).cpu()
+        after = memory_lib.backup_memory(s["st"].memory)
+        unchanged &= all(torch.equal(before[k], after[k]) for k in before)
+    out = dict(embed_max_abs_err=(embeds["cpu"] - embeds["card"]).abs()
+               .max().item(), embed_shape=list(embeds["card"].shape),
+               memory_unchanged=unchanged, tol=tol, chunks=[])
+    negs = {r: DstRandEdgeSampler(full.dst[:head], seed=6) for r in sides}
+    ok = unchanged and out["embed_max_abs_err"] <= tol
+    for c in range(chunks):
+        chunk = full[head + size * c: head + size * (c + 1)]
+        sync()
+        logits, evicted = {}, {}
+        for r, s in sides.items():
+            scores = []
+            for b in get_batches(chunk, size, negs[r]):
+                _, _, p, n = s["tr"].eval_step(
+                    s["st"], s["g"].device_graph(s["d"]), efs[s["d"]], b)
+                scores.append(torch.cat([p, n]).cpu())
+            logits[r] = torch.cat(scores)
+        err_m = mem_err()
+        for r, s in sides.items():
+            s["g"].add_edges(chunk.src, chunk.dst, chunk.time, chunk.eid,
+                             add_reverse=True)
+            negs[r].add_dst_list(chunk.dst)
+            evicted[r] = s["g"].offload_old_blocks(
+                float(chunk.time[-1]) - 4000.0)
+        views = [s["g"].device_graph(s["d"]) for s in sides.values()]
+        same_view = all(torch.equal(getattr(views[0], f),
+                                    getattr(views[1], f).cpu())
+                        for f in ("row_off", "row_len", "e_dst", "e_ts",
+                                  "e_eid"))
+        err_l = (logits["cpu"] - logits["card"]).abs().max().item()
+        out["chunks"].append(dict(logits_max_abs_err=err_l,
+                                  memory_max_abs_err=err_m,
+                                  evicted=evicted["card"],
+                                  views_equal=same_view))
+        ok &= (err_l <= tol and err_m <= tol and same_view
+               and evicted["cpu"] == evicted["card"] > 0)
+    out["uploads"] = {r: s["g"].uploads for r, s in sides.items()}
+    ok &= all(n == 1 + chunks for n in out["uploads"].values())
+    if not ok:
+        failed.append("online float32")
+    return out
+
+
 def _plain_attention_ms(torch, model, rec):
     """Device time of the plain attention with its dropout, forward and
     backward, on the inputs each layer last gave it (``rec``), replayed
@@ -2527,6 +2842,8 @@ def phase_self_check(torch, card: str = "cuda"):
     out["apan_float32"] = _self_check_apan(torch, card, full, graphs, efs,
                                            num_nodes, failed)
     out["static_float32"] = _self_check_static(torch, card, full, graphs,
+                                               num_nodes, failed)
+    out["online_float32"] = _self_check_online(torch, card, full, efs,
                                                num_nodes, failed)
     _log("self_check", eval_batches=4, batch_size=500, **out)
     if failed:
@@ -3003,6 +3320,8 @@ def main() -> int:
     dy = phase_dysat(torch, kernels, stream)
     ap = phase_apan(torch, kernels, stream)
     st = phase_static(torch, kernels, stream)
+    on = phase_online(torch, kernels)
+    inf = phase_inference(torch, kernels, on)
     # launches on each main path, counted from 0 just before it: TGN eval
     # batches, train steps at att_dropout 0.2 and at 0, dedup train steps,
     # fallback steps and eval batches, the entry script's two epochs; TGAT
@@ -3013,14 +3332,16 @@ def main() -> int:
     # batches, default train steps, steps at att_dropout 0 on the memory
     # dedup, at factor 0.01, the entry script's epoch; GraphSAGE's and
     # GAT's eval batches, default train steps, steps on the layer dedup at
-    # STATIC_FACTOR, at factor 0.01, the entry script's epoch
+    # STATIC_FACTOR, at factor 0.01, the entry script's epoch; the online
+    # script's eval steps and train steps (phase 1 and retraining); the
+    # inference script's eval and embed steps, TGN and DySAT
     paths = {"eval": sl["launches"], "train": tr["launches"],
              "train_att_dropout0": tr["att_dropout0"]["launches"],
              "dedup_train": dd["launches"],
              "dedup_fallback": dd["fallback"]["launches"],
              "dedup_eval": dd["eval"]["launches"], "entry": en["launches"],
              **tg["launches"], **dy["launches"], **ap["launches"],
-             **st["launches"]}
+             **st["launches"], **on["launches"], **inf["launches"]}
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())

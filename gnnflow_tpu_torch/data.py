@@ -1,11 +1,12 @@
 """Datasets, negative sampling and batch iteration.
 
 Counterpart of ``gnnflow_tpu/data.py`` (``EdgeTable``, ``load_dataset``,
-``load_feat``, ``make_synthetic_dataset``, ``DstRandEdgeSampler``,
-``Batch``, ``get_batches``).  The same seed gives byte-identical arrays,
-so both packages can run one stream.  ``load_dataset`` reads the
-reference's ``edges.csv`` with NumPy instead of pandas, which the port
-does not import; the chunked and partitioned loaders come with the
+``load_feat``, ``make_synthetic_dataset``, ``write_synthetic_dataset``,
+``DstRandEdgeSampler``, ``RandEdgeSampler``, ``Batch``, ``get_batches``).
+The same seed gives byte-identical arrays, so both packages can run one
+stream.  ``load_dataset`` reads, and ``write_synthetic_dataset`` writes,
+the reference's ``edges.csv`` with NumPy instead of pandas, which the
+port does not import; the chunked and partitioned loaders come with the
 multi-GPU slice.
 """
 from __future__ import annotations
@@ -36,6 +37,19 @@ class EdgeTable:
     def __getitem__(self, sl) -> "EdgeTable":
         return EdgeTable(self.src[sl], self.dst[sl], self.time[sl],
                          self.eid[sl])
+
+    @property
+    def max_node(self) -> int:
+        """The largest node id, -1 for an empty table."""
+        if len(self) == 0:
+            return -1
+        return int(max(self.src.max(), self.dst.max()))
+
+    def concat(self, other: "EdgeTable") -> "EdgeTable":
+        return EdgeTable(np.concatenate([self.src, other.src]),
+                         np.concatenate([self.dst, other.dst]),
+                         np.concatenate([self.time, other.time]),
+                         np.concatenate([self.eid, other.eid]))
 
 
 def _read_edges_csv(path: str) -> Tuple[EdgeTable, np.ndarray]:
@@ -151,16 +165,72 @@ def make_synthetic_dataset(
             node_feats, edge_feats)
 
 
+def write_synthetic_dataset(dataset_dir: str, **kwargs) -> None:
+    """Write :func:`make_synthetic_dataset` (``kwargs``) in the reference's
+    on-disk format (``data.py:287-305``): ``edges.csv`` with the index
+    column and ``src,dst,time,ext_roll`` (0 train, 1 val, 2 test), and
+    ``node_features.npy`` / ``edge_features.npy`` where the stream has
+    them.  A time is written as its exact float64 value, which reads back
+    to the same float32."""
+    train, val, _, full, node_feats, edge_feats = \
+        make_synthetic_dataset(**kwargs)
+    os.makedirs(dataset_dir, exist_ok=True)
+    ext_roll = np.zeros(len(full), dtype=np.int64)
+    ext_roll[len(train):len(train) + len(val)] = 1
+    ext_roll[len(train) + len(val):] = 2
+    with open(os.path.join(dataset_dir, "edges.csv"), "w") as f:
+        f.write(",src,dst,time,ext_roll\n")
+        for lo in range(0, len(full), 1 << 16):
+            sl = slice(lo, lo + (1 << 16))
+            f.writelines(
+                f"{i},{s},{d},{t!r},{r}\n" for i, s, d, t, r in zip(
+                    range(lo, lo + len(full.src[sl])),
+                    full.src[sl].tolist(), full.dst[sl].tolist(),
+                    full.time[sl].astype(np.float64).tolist(),
+                    ext_roll[sl].tolist()))
+    if node_feats is not None:
+        np.save(os.path.join(dataset_dir, "node_features.npy"), node_feats)
+    if edge_feats is not None:
+        np.save(os.path.join(dataset_dir, "edge_features.npy"), edge_feats)
+
+
 class DstRandEdgeSampler:
     """Uniformly sample negative destinations from the set of seen dsts."""
 
     def __init__(self, dst_list, seed: Optional[int] = None):
+        self.seed = seed
         self.dst_list = np.unique(dst_list)
         self.random_state = np.random.RandomState(seed)
 
     def sample(self, size: int) -> np.ndarray:
         idx = self.random_state.randint(0, len(self.dst_list), size)
         return self.dst_list[idx]
+
+    def reset_random_state(self) -> None:
+        self.random_state = np.random.RandomState(self.seed)
+
+    def add_dst_list(self, dst) -> None:
+        """Add destinations seen since (the online script's ingest)."""
+        self.dst_list = np.unique(np.concatenate((self.dst_list, dst)))
+
+
+class RandEdgeSampler:
+    """Sample random (src, dst) pairs from the seen sources and
+    destinations (``data.py:329-346``)."""
+
+    def __init__(self, src_list, dst_list, seed: Optional[int] = None):
+        self.seed = seed
+        self.src_list = np.unique(src_list)
+        self.dst_list = np.unique(dst_list)
+        self.random_state = np.random.RandomState(seed)
+
+    def sample(self, size: int) -> Tuple[np.ndarray, np.ndarray]:
+        src_idx = self.random_state.randint(0, len(self.src_list), size)
+        dst_idx = self.random_state.randint(0, len(self.dst_list), size)
+        return self.src_list[src_idx], self.dst_list[dst_idx]
+
+    def reset_random_state(self) -> None:
+        self.random_state = np.random.RandomState(self.seed)
 
 
 @dataclass

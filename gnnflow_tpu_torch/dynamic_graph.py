@@ -4,17 +4,22 @@ Counterpart of ``gnnflow_tpu/dynamic_graph.py:78-545`` and of the NumPy
 fallbacks in ``gnnflow_tpu/csrc/__init__.py``.  Vertex ``v`` owns pool
 slots ``[row_off[v], row_off[v] + row_cap[v])`` holding ``row_len[v]``
 edges sorted by timestamp; a vertex whose region fills moves to a
-power-of-two region at the pool tail.  The host mirror is the source of
-truth; :meth:`DynamicGraph.device_graph` copies it to torch tensors.
+power-of-two region at the pool tail.  Eviction
+(:meth:`DynamicGraph.offload_old_blocks`) drops each vertex's edges older
+than a timestamp by moving ``row_off`` forward, optionally spilling them
+to a file that :meth:`DynamicGraph.restore_from_file` re-inserts;
+:meth:`DynamicGraph.compact` repacks the live regions to the front of the
+pool.  The host mirror is the source of truth;
+:meth:`DynamicGraph.device_graph` copies it to torch tensors and keeps
+that view until the mirror changes.
 
 The TPU lane tricks (the interleaved triple pool and pair table) have no
-GPU meaning and are left out.  Eviction (``offload_old_blocks``),
-``compact`` and spilling come with a later slice.
-:func:`build_dynamic_graph` builds the store from a data config
-(``dynamic_graph.py:547-575``).
+GPU meaning and are left out.  :func:`build_dynamic_graph` builds the
+store from a data config (``dynamic_graph.py:547-575``).
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -22,6 +27,7 @@ import numpy as np
 import torch
 
 from gnnflow_tpu_torch.common import resolve_device
+from gnnflow_tpu_torch.data import get_project_root_dir
 
 
 @dataclass
@@ -66,6 +72,22 @@ def _ranged_arange(counts: np.ndarray) -> np.ndarray:
             - np.repeat(_exclusive_cumsum(counts), counts))
 
 
+def _ranged_lower_bound(pool_ts: np.ndarray, off: np.ndarray,
+                        lengths: np.ndarray, target) -> np.ndarray:
+    """Per range ``[off, off + length)`` of the ts-sorted pool, the count
+    of entries below ``target``: a vectorised binary search, the NumPy
+    fallback of ``gnnflow_tpu/csrc/__init__.py:76-91``."""
+    lo = np.zeros(len(off), dtype=np.int64)
+    hi = lengths.astype(np.int64).copy()
+    while (lo < hi).any():
+        mid = (lo + hi) // 2
+        go = pool_ts[off + np.minimum(mid, lengths - 1)] < target
+        act = lo < hi
+        lo = np.where(act & go, mid + 1, lo)
+        hi = np.where(act & ~go, mid, hi)
+    return lo
+
+
 def _resort_range(pool_ts: np.ndarray, pool_dst: np.ndarray,
                   pool_eid: np.ndarray, off: int, length: int) -> None:
     """Stable ts re-sort of one vertex range, in place."""
@@ -81,13 +103,18 @@ class DynamicGraph:
 
     A vertex whose region fills moves to a region of the next power of two
     edges, at least ``minimum_block_size`` (the JAX package's default
-    ``insertion_policy="insert"`` with ``adaptive_block_size=True``)."""
+    ``insertion_policy="insert"`` with ``adaptive_block_size=True``).
+    Evicted edges spill to ``spill_dir`` (default ``graph_spill/`` at the
+    repository root).  ``uploads`` counts the device views built."""
 
     def __init__(self, initial_pool_size: int = 1 << 20,
                  maximum_pool_size: int = 1 << 26,
-                 minimum_block_size: int = 16):
+                 minimum_block_size: int = 16,
+                 spill_dir: Optional[str] = None):
         self.minimum_block_size = int(max(1, minimum_block_size))
         self.maximum_pool_size = int(maximum_pool_size)
+        self.spill_dir = spill_dir or os.path.join(get_project_root_dir(),
+                                                   "graph_spill")
 
         cap = _next_pow2(max(int(initial_pool_size), 1024))
         self._pool_cap = cap
@@ -107,7 +134,14 @@ class DynamicGraph:
 
         self._eid_seen = np.zeros(1024, dtype=bool)
         self._num_unique_eids = 0
+        self._num_offloaded = 0
         self._max_degree = 0
+
+        # the device view, rebuilt when the mirror changes (``_dirty``)
+        self._device_graph: Optional[DeviceGraph] = None
+        self._view_device: Optional[torch.device] = None
+        self._dirty = True
+        self.uploads = 0
 
     # -- capacity ------------------------------------------------------
 
@@ -248,6 +282,75 @@ class DynamicGraph:
                 v = uniq[j]
                 _resort_range(self._ts, self._dst, self._eid,
                               int(self._row_off[v]), int(self._row_len[v]))
+        self._dirty = True
+
+    # -- eviction ------------------------------------------------------
+
+    def offload_old_blocks(self, timestamp: float,
+                           to_file: bool = False) -> int:
+        """Evict every edge strictly older than ``timestamp``
+        (``dynamic_graph.py:357-395``); returns the count.  A vertex's
+        region shrinks from the front: ``row_off`` moves forward and
+        ``row_len`` and ``row_cap`` shrink, so a vertex that fills again
+        moves to the pool tail.  With ``to_file`` the evicted edges go to
+        ``<spill_dir>/offload_<n>.npz`` (``src, dst, ts, eid``), ``n``
+        the count of edges evicted before.  The largest degree seen (and
+        so ``search_iters``) does not drop."""
+        active = np.flatnonzero(self._row_len > 0)
+        if len(active) == 0:
+            return 0
+        offs = self._row_off[active]
+        lens = self._row_len[active]
+        k = _ranged_lower_bound(self._ts, offs, lens, np.float32(timestamp))
+        total = int(k.sum())
+        if total == 0:
+            return 0
+        if to_file:
+            idx = np.repeat(offs, k) + _ranged_arange(k)
+            os.makedirs(self.spill_dir, exist_ok=True)
+            np.savez(os.path.join(self.spill_dir,
+                                  f"offload_{self._num_offloaded}.npz"),
+                     src=np.repeat(active, k), dst=self._dst[idx],
+                     ts=self._ts[idx], eid=self._eid[idx])
+        self._row_off[active] += k
+        self._row_len[active] -= k
+        self._row_cap[active] -= k
+        self._num_offloaded += total
+        self._dirty = True
+        return total
+
+    def restore_from_file(self, path: str) -> int:
+        """Re-insert the edges of a spill file of
+        :meth:`offload_old_blocks` (``dynamic_graph.py:397-405``); returns
+        their count."""
+        with np.load(path) as f:
+            src, dst, ts, eid = f["src"], f["dst"], f["ts"], f["eid"]
+        self.add_edges(src, dst, ts, eids=eid)
+        return int(len(src))
+
+    def compact(self) -> None:
+        """Repack every region to the front of the pool, each at the
+        power of two of its live edges, at least ``minimum_block_size``
+        (``dynamic_graph.py:407-433``), reclaiming what reallocation and
+        eviction left behind."""
+        active = np.flatnonzero(self._row_cap > 0)
+        lens = self._row_len[active]
+        caps = np.maximum(
+            self.minimum_block_size,
+            2 ** np.ceil(np.log2(np.maximum(lens, 1))).astype(np.int64))
+        new_offs = _exclusive_cumsum(caps)
+        intra = _ranged_arange(lens)
+        src_idx = np.repeat(self._row_off[active], lens) + intra
+        dst_idx = np.repeat(new_offs, lens) + intra
+        for name in ("_dst", "_ts", "_eid"):
+            arr = getattr(self, name)
+            packed = np.zeros_like(arr)
+            packed[dst_idx] = arr[src_idx]
+            setattr(self, name, packed)
+        self._row_off[active] = new_offs
+        self._row_cap[active] = caps
+        self._pool_used = int(caps.sum())
+        self._dirty = True
 
     # -- introspection -------------------------------------------------
 
@@ -306,20 +409,32 @@ class DynamicGraph:
 
     # -- device view ---------------------------------------------------
 
-    def device_graph(self, device="cuda") -> DeviceGraph:
-        """Copy the host mirror to ``device`` as a :class:`DeviceGraph`."""
+    def device_graph(self, device="cuda", refresh: bool = False
+                     ) -> DeviceGraph:
+        """The host mirror on ``device`` as a :class:`DeviceGraph`: the
+        view built by an earlier call until the mirror changes
+        (``add_edges``, ``offload_old_blocks``, ``compact``,
+        ``restore_from_file``), ``device`` changes or ``refresh`` is set
+        (``dynamic_graph.py:506-545``).  The view is a copy, also on the
+        CPU, so a later change of the mirror never shows through it."""
         dev = resolve_device(device)
+        if self._device_graph is not None and self._view_device == dev \
+                and not (self._dirty or refresh):
+            return self._device_graph
 
         def put(x):
-            return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            return torch.from_numpy(x).to(dev, copy=True)
 
-        return DeviceGraph(
+        self._device_graph = DeviceGraph(
             row_off=put(self._row_off.astype(np.int32)),
             row_len=put(self._row_len.astype(np.int32)),
             e_dst=put(self._dst),
             e_ts=put(self._ts),
             e_eid=put(self._eid),
             search_iters=max(1, self._max_degree.bit_length()))
+        self._view_device, self._dirty = dev, False
+        self.uploads += 1
+        return self._device_graph
 
 
 def build_dynamic_graph(initial_pool_size: int, maximum_pool_size: int,

@@ -126,8 +126,13 @@ class DGNN(nn.Module):
                 train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 expansions=None,
-                node_feats: Optional[List[Optional[torch.Tensor]]] = None):
-        """Returns ``(pos_logits, neg_logits, last_updated)``.
+                node_feats: Optional[List[Optional[torch.Tensor]]] = None,
+                return_embed: bool = False):
+        """Returns ``(pos_logits, neg_logits, last_updated)``, or with
+        ``return_embed`` ``(embed, last_updated)``: the [(2+r)·B,
+        dim_embed] roots' embeddings after the snapshot combiner, before
+        the edge predictor, in the last layer's output dtype
+        (``dgnn.py:199-201``).
 
         ``mfgs[l][h]`` is layer ``l``'s MFG in snapshot ``h``, innermost
         (deepest) layer first; ``edge_feats[l][h]`` its [B, F, dim_edge]
@@ -184,5 +189,7 @@ class DGNN(nn.Module):
             embed = torch.zeros_like(out[0])
             for x in out:
                 embed = self.combiner(embed, x)
+        if return_embed:
+            return embed, last_updated
         pos, neg = self.edge_predictor(embed)
         return pos, neg, last_updated

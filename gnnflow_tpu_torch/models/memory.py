@@ -3,8 +3,8 @@ updaters and the write-back.
 
 Counterpart of ``gnnflow_tpu/models/memory.py`` for f32 storage:
 ``MemoryState`` with one mail slot or ``S`` of them (APAN's circular
-mailbox) and ``init_memory`` (``:50-208``), reset, backup and restore
-(``:207-283``), ``DedupMemoryInput`` and ``RawMemoryInput``
+mailbox) and ``init_memory`` (``:50-208``), reset, resize, backup and
+restore (``:207-283``), ``DedupMemoryInput`` and ``RawMemoryInput``
 (``:286-311``), ``prepare_input_at`` and ``prepare_input`` with the
 meaning of ``prepare_input_bf16`` (``:314-433``), ``GRUMemoryUpdater`` on
 the per-instance and the dedup path (``:436-590``),
@@ -88,6 +88,22 @@ def reset_memory(state: MemoryState) -> MemoryState:
     for f in fields(state):
         getattr(state, f.name).zero_()
     return state
+
+
+def resize_memory(state: MemoryState, num_nodes: int) -> MemoryState:
+    """A state of ``num_nodes`` rows: ``state`` itself where it has as
+    many, else new tensors holding its rows and zero rows after them,
+    every mail slot and the cursor included (``memory.py:211-221``)."""
+    if num_nodes <= state.num_nodes:
+        return state
+
+    def grow(t: torch.Tensor) -> torch.Tensor:
+        out = t.new_zeros((num_nodes,) + tuple(t.shape[1:]))
+        out[: t.shape[0]] = t
+        return out
+
+    return MemoryState(**{f.name: grow(getattr(state, f.name))
+                          for f in fields(state)})
 
 
 def backup_memory(state: MemoryState) -> Dict[str, torch.Tensor]:

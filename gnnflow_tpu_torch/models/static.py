@@ -215,13 +215,16 @@ class _StaticModel(nn.Module):
                 train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 expansions=None,
-                node_feats: Optional[Sequence[torch.Tensor]] = None):
+                node_feats: Optional[Sequence[torch.Tensor]] = None,
+                return_embed: bool = False):
         """The trainer's arguments in :class:`DGNN`'s order (edge features
         and memory input are unused) and ``node_feats[0]``, the innermost
         MFG's [B·(1+F), dim_node] node features.  ``expansions[l]``, where
         given and not None, is a ``("rows", inv, sidx, rank_sorted)`` spec
         that expands layer ``l``'s compact output to layer ``l + 1``'s
-        instances.  Returns ``(pos_logits, neg_logits, None)``."""
+        instances.  Returns ``(pos_logits, neg_logits, None)``, or with
+        ``return_embed`` the last layer's rows in f32 and None
+        (``static.py:183, 237``)."""
         if node_feats is None or node_feats[0] is None:
             raise ValueError("a static model needs node features")
         h = node_feats[0]
@@ -233,6 +236,8 @@ class _StaticModel(nn.Module):
             h = self._between(h)
             if expansions is not None and expansions[l] is not None:
                 h = expand_rows_spec(h, expansions[l])
+        if return_embed:
+            return h.float(), None
         b = h.shape[0] // 3
         src, pos, neg = h[:b], h[b:2 * b], h[2 * b:]
         return self.predictor(src * pos), self.predictor(src * neg), None

@@ -3,8 +3,8 @@ link prediction.
 
 Counterpart of ``gnnflow_tpu/train.py``: ``link_pred_loss``
 (``:49-65``), ``_gather_rows`` and ``fetch_features`` (``:92-137``), and a
-``Trainer`` with ``init_state``, ``train_step`` and ``eval_step``
-(``:1200-1265, 1371-1378, 1411-1417``).  A step samples the batch roots'
+``Trainer`` with ``init_state``, ``train_step``, ``eval_step`` and
+``embed_step`` (``:1200-1265, 1371-1417``).  A step samples the batch roots'
 neighbours over every layer (most recent or uniform; static models at the
 timestamp ``3.4e38``), gathers edge and node features, pulls memory rows
 (TGN, APAN), runs the model (GRU or transformer memory update, temporal
@@ -508,17 +508,19 @@ class Trainer:
         return mfgs, exps, take[0]
 
     def _mem_input(self, state: TrainState, mfg: MFG,
-                   node_feats: Optional[torch.Tensor]):
+                   node_feats: Optional[torch.Tensor], dedup: bool = True):
         """The memory updater's input (``train.py:834-904``): the dedup's
-        compact input, with the node-feature table, when the factor is set
-        and the batch's unique pairs fit its cap; else the raw state for
-        the transformer updater's table path (``apan_table``); else the
-        per-instance pull, in bf16 under bf16 compute when the node table
-        is small next to the instance count (``:851-858``; timestamps stay
-        f32).  Records the unique count in ``state.dedup_n_uniq``."""
+        compact input, with the node-feature table, when ``dedup`` and the
+        factor are set and the batch's unique pairs fit its cap; else the
+        raw state for the transformer updater's table path
+        (``apan_table``); else the per-instance pull, in bf16 under bf16
+        compute when the node table is small next to the instance count
+        (``:851-858``; timestamps stay f32).  With ``dedup``, records the
+        unique count in ``state.dedup_n_uniq``."""
         memory = state.memory
-        state.dedup_n_uniq = None
-        if self.dedup_factor:
+        if dedup:
+            state.dedup_n_uniq = None
+        if dedup and self.dedup_factor:
             cap = self._dedup_cap(mfg.num_all)
             uniq_nid, uniq_ts, inv, n_uniq, sidx, rank_sorted = \
                 dedup_instances(mfg.all_nodes(), mfg.all_ts(),
@@ -652,6 +654,37 @@ class Trainer:
         loss = link_pred_loss(pos, neg, valid)
         self._write_back(state, last, edge_feats, eids, valid)
         return state, loss, pos[:, 0], neg[:, 0]
+
+    @torch.no_grad()
+    def embed_step(self, state: TrainState, dg: DeviceGraph,
+                   edge_feats: Optional[torch.Tensor], batch: Batch, *,
+                   node_feats: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+        """The batch roots' embeddings (``train.py:1380-1409``): the padded
+        path's sample (static models at ``3.4e38``), the feature gathers,
+        the memory pull (TGN, APAN), then the model at ``train=False,
+        return_embed=True``.  No fast path runs, whatever is set, and
+        ``state`` is left as it was: memory is not written back and the
+        sampling generator does not advance.
+
+        Returns the [(2+r)·B, dim_embed] embeddings."""
+        dev = self.device
+        roots = torch.from_numpy(batch.target_nodes).to(dev)
+        ts = torch.from_numpy(batch.ts).to(dev)
+        if self.is_static:
+            ts = torch.full_like(ts, STATIC_SAMPLE_TS)
+        gen = torch.Generator(device=dev)
+        gen.set_state(state.sample_gen.get_state())
+        mfgs = self._sample(gen, dg, roots, ts)
+        efs = fetch_features(mfgs, edge_feats if self.model.dim_edge
+                             else None)
+        mem_input = self._mem_input(state, mfgs[0][0], node_feats,
+                                    dedup=False) \
+            if self.model.use_memory else None
+        nfs = self._node_inputs(mfgs, mem_input, node_feats, False)
+        embed, _ = self.model(mfgs, efs, mem_input, node_feats=nfs,
+                              return_embed=True)
+        return embed
 
     def calibrate(self, dg: DeviceGraph, batches, *, max_batches: int = 3,
                   occ_batches=()) -> dict:
