@@ -2461,6 +2461,375 @@ def phase_inference(torch, kernels, on):
     return dict(launches=launches, **res)
 
 
+CACHE_RATIO = 0.3       # edge-cache ratio of the cache phase
+CACHE_BATCH = 4000      # its batch size (the REDDIT default)
+CACHE_STEP_TOL = 1e-6   # prefetched vs resident, pipelined vs serial
+CACHE_POLICIES = ("LRUCache", "LFUCache", "FIFOCache", "GNNLabStaticCache")
+
+
+def _cache_store(full, data_cfg, placement):
+    from gnnflow_tpu_torch.dynamic_graph import build_dynamic_graph
+    g = build_dynamic_graph(**{**data_cfg, "mem_resource_type": placement})
+    for lo in range(0, len(full), 100_000):
+        sl = slice(lo, lo + 100_000)
+        g.add_edges(full.src[sl], full.dst[sl], full.time[sl], full.eid[sl],
+                    add_reverse=data_cfg["undirected"])
+    return g
+
+
+def _cache_fetch_check(torch, name, tdt, sampler, g, ef_np, ef, train,
+                       batches, num_nodes):
+    """Check 1 for one policy and transfer dtype: every fetch against the
+    direct gather from the master table on the card (f32: the same bits;
+    bf16: each row the f32 row or its bf16 rounding, the seeded rows
+    being f32) and against the same cache on the CPU, fed the same MFGs
+    (the same bits, and the same hit ratio after every batch)."""
+    from gnnflow_tpu_torch.cache import CACHES
+    caches = [CACHES[name](CACHE_RATIO, 0, num_nodes, g.num_edges(), None,
+                           ef_np, transfer_dtype=tdt, device=d)
+              for d in ("cuda", "cpu")]
+    for c in caches:
+        if name == "GNNLabStaticCache":
+            c.init_cache(sampler=sampler, train_data=train,
+                         pre_sampling_rounds=2, batch_size=CACHE_BATCH)
+        else:
+            c.init_cache()
+    card, host = caches
+    bad, ratios = [], []
+    for i, b in enumerate(batches):
+        mfgs = sampler.sample(b.target_nodes, b.ts)
+        _, efs = card.fetch_feature(mfgs, b.eids)
+        _, hefs = host.fetch_feature(mfgs, b.eids)
+        m = mfgs[0][0]
+        want = torch.where(m.nbr_mask[..., None], ef[m.nbr_eids], 0.0)
+        want_t = ef[torch.from_numpy(b.eids).cuda()]
+        for got, w in ((efs[0][0], want),
+                       (card.target_edge_features, want_t)):
+            same = torch.equal(got, w) if tdt == "float32" else bool(
+                ((got == w) | (got == w.bfloat16().float())).all())
+            if not same:
+                bad.append(f"{name} {tdt} batch {i}: fetch != gather")
+        for got, h in ((efs[0][0], hefs[0][0]),
+                       (card.target_edge_features,
+                        host.target_edge_features)):
+            if not torch.equal(got.cpu(), h):
+                bad.append(f"{name} {tdt} batch {i}: card != CPU")
+        ratios.append(card.cache_edge_ratio)
+        if card.cache_edge_ratio != host.cache_edge_ratio:
+            bad.append(f"{name} {tdt} batch {i}: hit ratio "
+                       f"{card.cache_edge_ratio} != {host.cache_edge_ratio}")
+    return bad, dict(hit_ratio=ratios[-1], hit_ratio_first=ratios[0],
+                     capacity=card.edge_cache.capacity,
+                     mem_mb=card.get_mem_size() / 1e6)
+
+
+def _cached_steps(torch, trainer, state, sampler, cache, batches, train=True,
+                  pipeline=False):
+    """Prefetched steps over ``batches`` (serial: sample, fetch, step;
+    or through the FeaturePipeline): ``(losses, ms per step by CUDA
+    events, host ms per step)``."""
+    from gnnflow_tpu_torch.pipeline import FeaturePipeline
+    losses = []
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    if pipeline:
+        for b, mfgs, nfs, efs, tef in FeaturePipeline(
+                sampler, cache).run(iter(batches)):
+            losses.append(trainer.train_step_prefetched(
+                state, mfgs, nfs, efs, tef, b, train=train)[1])
+    else:
+        for b in batches:
+            mfgs = sampler.sample(b.target_nodes, b.ts)
+            nfs, efs = cache.fetch_feature(mfgs, b.eids)
+            losses.append(trainer.train_step_prefetched(
+                state, mfgs, nfs, efs, cache.target_edge_features, b,
+                train=train)[1])
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    return torch.stack(losses).float().cpu(), \
+        start.elapsed_time(end) / len(batches), host_ms
+
+
+def _tgn_cached(torch, num_nodes, compute_dtype, dedup=None, **over):
+    from gnnflow_tpu_torch.models.dgnn import DGNN
+    from gnnflow_tpu_torch.train import Trainer
+    model = DGNN(dim_edge=172, compute_dtype=compute_dtype, seed=0,
+                 device="cuda", **{**TGN, **over})
+    trainer = Trainer(model, fanouts=[10], lr=1e-4, dedup_factor=dedup,
+                      device="cuda")
+    return model, trainer, trainer.init_state(num_nodes, seed=0)
+
+
+def phase_cache(torch, kernels, on):
+    """TGN through the feature cache at the REDDIT defaults (batch 4000,
+    fanout 10 recent, memory, time and embedding dims 100, 2 heads) on the
+    online phase's REDDIT-shaped stream read back from disk (the REDDIT
+    data config: directed), the 172-dim edge table on the host, edge-cache
+    ratio 0.3.  Checks: (1) the four policies' fetches, f32 and bf16
+    transfer, over 20 batches, against the direct gather and the same
+    cache on the CPU; (2) 5 f32 prefetched train steps at dropout 0
+    against ``train_step`` on the resident table from one state; (3) 20
+    bf16 train steps pipelined against serial; (4) 5 cached train steps
+    on the memory dedup at 0.35 on a store placed on the host (sampled on
+    the CPU) against the card's store; (5) the kernels' launches on each
+    path; (6) one epoch of the script with ``--cache LRUCache
+    --edge-cache-ratio 0.3 --features-on-host``, serial and pipelined.
+    Timings (CUDA events, bf16, batch 4000): cached train steps serial and
+    pipelined, cached eval, the resident train step of the same store, and
+    per batch the sampling, the copy of the ids to the host, the host time
+    of ``fetch_feature``, the misses and their copy to the card alone."""
+    import numpy as np
+    from gnnflow_tpu_torch.cache import LRUCache
+    from gnnflow_tpu_torch.cache.cache import mfgs_to_host
+    from gnnflow_tpu_torch.config import get_default_config
+    from gnnflow_tpu_torch.data import load_dataset, load_feat
+    from gnnflow_tpu_torch.ops import _build
+    from gnnflow_tpu_torch.scripts import offline_edge_prediction as entry
+    from gnnflow_tpu_torch.temporal_sampler import TemporalSampler
+    from gnnflow_tpu_torch.train import Trainer
+    t0 = time.perf_counter()
+    train, _, _, full = load_dataset("REDDIT", on["data_dir"])
+    _, ef_np = load_feat("REDDIT", on["data_dir"])
+    _, data_cfg = get_default_config("tgn", "reddit")
+    g = _cache_store(full, data_cfg, "hbm")
+    num_nodes = g.max_vertex_id() + 1
+    dg = g.device_graph("cuda")
+    ef = torch.from_numpy(ef_np).cuda()
+    sampler = TemporalSampler(g, [10])
+    n_fetch, n_steps, n_eval, n_host = 20, 20, 10, 5
+    # from the middle of the train split: the first-k seeding holds every
+    # edge the first batches reach, so they would never miss
+    batches = _take(train[len(train) // 2:], CACHE_BATCH, train.dst,
+                    3 + n_steps + n_eval)
+    setup_s = time.perf_counter() - t0
+    bad, res = [], dict(setup_s=setup_s, edges=len(full),
+                        nodes=num_nodes, ratio=CACHE_RATIO,
+                        table_mb=ef_np.nbytes / 1e6)
+
+    # (1) fetches
+    t0 = time.perf_counter()
+    res["fetch"] = {}
+    for name in CACHE_POLICIES:
+        for tdt in ("float32", "bfloat16"):
+            b1, r = _cache_fetch_check(torch, name, tdt, sampler, g, ef_np,
+                                       ef, train, batches[:n_fetch],
+                                       num_nodes)
+            bad += b1
+            res["fetch"][f"{name}/{tdt}"] = r
+    res["fetch_s"] = time.perf_counter() - t0
+    _log("cache", check="fetch", ok=not bad, **res)
+
+    # per batch: sampling, the id copy, fetch_feature, misses, H2D alone
+    cache = LRUCache(CACHE_RATIO, 0, num_nodes, g.num_edges(), None, ef_np)
+    cache.init_cache()
+    parts = {k: [] for k in ("sample_ms", "d2h_ids_ms", "fetch_host_ms",
+                             "unique_ids", "miss_rows")}
+    for b in batches[:n_fetch]:
+        kind = cache.edge_cache
+        total, hits = kind.total, kind.hits
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mfgs = sampler.sample(b.target_nodes, b.ts)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        mfgs_to_host(mfgs)
+        t3 = time.perf_counter()
+        cache.fetch_feature(mfgs, b.eids)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for k, v in (("sample_ms", t2 - t1), ("d2h_ids_ms", t3 - t2),
+                     ("fetch_host_ms", t4 - t3)):
+            parts[k].append(v * 1e3)
+        parts["unique_ids"].append(kind.total - total)
+        parts["miss_rows"].append((kind.total - total) - (kind.hits - hits))
+    per = {k: statistics.mean(v[3:]) for k, v in parts.items()}
+    per["miss_mb_f32"] = per["miss_rows"] * 172 * 4 / 1e6
+    staged = torch.empty(int(per["miss_rows"]) * 172, pin_memory=True)
+    per["h2d_ms"] = cuda_ms(torch, lambda: staged.to(
+        "cuda", non_blocking=True))
+    per["h2d_gb_s"] = staged.nbytes / (per["h2d_ms"] / 1e3) / 1e9
+    res["per_batch"] = per
+    res["hit_ratio_lru_20"] = cache.cache_edge_ratio
+
+    # (2) the prefetched step against the resident step, f32, dropout 0
+    f32 = dict(dropout=0.0, att_dropout=0.0)
+    runs = [_tgn_cached(torch, num_nodes, None, **f32) for _ in range(2)]
+    cache = LRUCache(CACHE_RATIO, 0, num_nodes, g.num_edges(), None, ef_np)
+    cache.init_cache()
+    worst = dict(loss=0.0, logits=0.0)
+    for b in batches[3:3 + n_host]:
+        _, l_r, p_r, n_r = runs[0][1].train_step(runs[0][2], dg, ef, b)
+        mfgs = sampler.sample(b.target_nodes, b.ts)
+        _, efs = cache.fetch_feature(mfgs, b.eids)
+        _, l_c, p_c, n_c = runs[1][1].train_step_prefetched(
+            runs[1][2], mfgs, None, efs, cache.target_edge_features, b)
+        worst["loss"] = max(worst["loss"], _rel(l_c, l_r))
+        worst["logits"] = max(worst["logits"], _rel(torch.cat([p_c, n_c]),
+                                                    torch.cat([p_r, n_r])))
+    worst["params"] = max(_rel(a.detach(), w.detach()) for a, w in zip(
+        runs[1][0].parameters(), runs[0][0].parameters()))
+    worst["memory"] = _rel(runs[1][2].memory.node_memory,
+                           runs[0][2].memory.node_memory)
+    res["step_vs_resident"] = dict(steps=n_host, tol=CACHE_STEP_TOL,
+                                   **worst)
+    if max(worst.values()) > CACHE_STEP_TOL:
+        bad.append(f"prefetched vs resident: {worst}")
+    del runs
+
+    # (3), (5) bf16 at the defaults: serial, pipelined, eval, resident
+    timing = {}
+    losses, hits = {}, {}
+    for mode in ("serial", "pipeline"):
+        model, trainer, state = _tgn_cached(torch, num_nodes, "bfloat16")
+        cache = LRUCache(CACHE_RATIO, 0, num_nodes, g.num_edges(), None,
+                         ef_np)
+        cache.init_cache()
+        _cached_steps(torch, trainer, state, sampler, cache, batches[:3],
+                      pipeline=mode == "pipeline")            # warm-up
+        cache.reset()
+        _reset(kernels)
+        losses[mode], ms, host_ms = _cached_steps(
+            torch, trainer, state, sampler, cache,
+            batches[3:3 + n_steps], pipeline=mode == "pipeline")
+        hits[mode] = cache.cache_edge_ratio
+        timing[f"train_{mode}_ms_per_step"] = ms
+        timing[f"train_{mode}_host_ms_per_step"] = host_ms
+        res.setdefault("launches", {})[f"cache_{mode}" if mode ==
+                                       "pipeline" else "cache_train"] = {
+            k: f.launches for k, f in kernels.items()}
+        if not (bool(torch.isfinite(losses[mode]).all())
+                and _all_finite(torch, state, model)):
+            bad.append(f"cached {mode} training: non-finite")
+        if mode == "pipeline":
+            # the worker waits for the interpreter lock up to the switch
+            # interval (5 ms) each time the stepping thread holds it; the
+            # same steps again at 0.1 ms show what that wait costs
+            interval = sys.getswitchinterval()
+            sys.setswitchinterval(1e-4)
+            try:
+                _, ms, host_ms = _cached_steps(
+                    torch, trainer, state, sampler, cache,
+                    batches[3:3 + n_steps], pipeline=True)
+            finally:
+                sys.setswitchinterval(interval)
+            timing["train_pipeline_switch_0.1ms_ms_per_step"] = ms
+            _reset(kernels)
+            _, ms, host_ms = _cached_steps(
+                torch, trainer, state, sampler, cache,
+                batches[3 + n_steps:], train=False)
+            timing["eval_ms_per_batch"] = ms
+            timing["eval_host_ms_per_batch"] = host_ms
+            res["launches"]["cache_eval"] = {k: f.launches
+                                             for k, f in kernels.items()}
+    err = _rel(losses["pipeline"], losses["serial"])
+    res["pipeline_vs_serial"] = dict(steps=n_steps, loss_rel=err,
+                                     hit_serial=hits["serial"],
+                                     hit_pipeline=hits["pipeline"])
+    if hits["serial"] != hits["pipeline"] or err > CACHE_STEP_TOL:
+        bad.append(f"pipeline vs serial: {res['pipeline_vs_serial']}")
+    model, _, state = _tgn_cached(torch, num_nodes, "bfloat16")
+    trainer = Trainer(model, fanouts=[10], lr=1e-4, dedup_factor=None,
+                      device="cuda")
+    for b in batches[:3]:
+        trainer.train_step(state, dg, ef, b)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t1 = time.perf_counter()
+    start.record()
+    for b in batches[3:3 + n_steps]:
+        trainer.train_step(state, dg, ef, b)
+    end.record()
+    torch.cuda.synchronize()
+    timing["resident_train_ms_per_step"] = start.elapsed_time(end) / n_steps
+    timing["resident_train_host_ms_per_step"] = \
+        (time.perf_counter() - t1) * 1e3 / n_steps
+    res["timing"] = timing
+
+    # (4) a store placed on the host, sampled on the CPU, memory dedup
+    hg = _cache_store(full, data_cfg, "host")
+    host_losses = []
+    for store in (g, hg):
+        model, trainer, state = _tgn_cached(torch, num_nodes, None, 0.35,
+                                            **f32)
+        s = TemporalSampler(store, [10])
+        cache = LRUCache(CACHE_RATIO, 0, num_nodes, store.num_edges(), None,
+                         ef_np)
+        cache.init_cache()
+        _reset(kernels)
+        fast = 0
+        ls = []
+        for b in batches[3:3 + n_host]:
+            mfgs = s.sample(b.target_nodes, b.ts)
+            if store is hg and mfgs[0][0].nbr_eids.device.type != "cpu":
+                bad.append("the host store was not sampled on the CPU")
+            nfs, efs = cache.fetch_feature(mfgs, b.eids)
+            ls.append(trainer.train_step_prefetched(
+                state, mfgs, nfs, efs, cache.target_edge_features, b)[1])
+            fast += _fast_steps(trainer, state, CACHE_BATCH * 3 * 11)
+        host_losses.append(torch.stack(ls).cpu())
+        if store is hg:
+            res["launches"]["cache_host_store"] = {
+                k: f.launches for k, f in kernels.items()}
+            res["host_store"] = dict(steps=n_host, dedup_fast_steps=fast,
+                                     sample_device=str(s.sample_device))
+    res["host_store"]["loss_rel"] = _rel(host_losses[1], host_losses[0])
+    if res["host_store"]["loss_rel"] > CACHE_STEP_TOL:
+        bad.append(f"host store vs card store: {res['host_store']}")
+
+    # (6) the script, serial and pipelined
+    res["entry"] = {}
+    en_launches = {k: 0 for k in kernels}
+    for mode, extra in (("serial", []), ("pipeline", ["--pipeline"])):
+        _reset(kernels)
+        t1 = time.perf_counter()
+        out = entry.main(["--model", "TGN", "--data", "REDDIT",
+                          "--data-dir", on["data_dir"], "--epoch", "1",
+                          "--cache", "LRUCache", "--edge-cache-ratio",
+                          str(CACHE_RATIO), "--features-on-host"] + extra,
+                         checkpoint_path=os.path.join(
+                             _build.BUILD_DIR, "TGN_torch_cache.ckpt"))
+        torch.cuda.synchronize()
+        for k, f in kernels.items():
+            en_launches[k] += f.launches
+        scores = out["val_ap"] + out["val_auc"] + [out["test_ap"],
+                                                   out["test_auc"]]
+        if not (all(np.isfinite(x) and 0.0 < x <= 1.0 for x in scores)
+                and 0.0 < out["cache_edge_hit"][0] <= 1.0
+                and out["phases"] and out["phases"][0].get("train")):
+            bad.append(f"entry {mode}: {out}")
+        res["entry"][mode] = dict(seconds=time.perf_counter() - t1, **out)
+    res["launches"]["cache_entry"] = en_launches
+
+    L = res["launches"]
+    # training at attention dropout 0.2 routes around K3; the host-store
+    # steps run at 0, so K3 and its backward run there
+    want = {"cache_train": (n_steps, n_steps, 0, 0),
+            "cache_pipeline": (n_steps, n_steps, 0, 0),
+            "cache_eval": (n_eval, 0, n_eval, 0),
+            "cache_host_store": (n_host, n_host, n_host,
+                                 res["host_store"]["dedup_fast_steps"])}
+    for path, counts in want.items():
+        got = tuple(L[path][k] for k in (
+            "gru_memory_fused", "gru_memory_fused_bwd",
+            "neighborhood_attention", "sorted_segment_sum"))
+        if got != counts:
+            bad.append(f"{path}: launches {got}, expected {counts}")
+    if not (res["host_store"]["dedup_fast_steps"]
+            and all(L["cache_entry"][k] for k in (
+                "gru_memory_fused", "gru_memory_fused_bwd",
+                "neighborhood_attention"))):
+        bad.append(f"launches {L}")
+    _log("cache", **{k: v for k, v in res.items() if k != "fetch"})
+    if bad:
+        raise AssertionError(f"cache: {bad}")
+    return res
+
+
 def _self_check_online(torch, card, full, efs, num_nodes, failed):
     """TGN in f32, CPU (plain versions) against card (kernels), from one
     state: one ``embed_step`` after an eval batch (the card takes the
@@ -3322,6 +3691,7 @@ def main() -> int:
     st = phase_static(torch, kernels, stream)
     on = phase_online(torch, kernels)
     inf = phase_inference(torch, kernels, on)
+    ca = phase_cache(torch, kernels, on)
     # launches on each main path, counted from 0 just before it: TGN eval
     # batches, train steps at att_dropout 0.2 and at 0, dedup train steps,
     # fallback steps and eval batches, the entry script's two epochs; TGAT
@@ -3334,14 +3704,17 @@ def main() -> int:
     # GAT's eval batches, default train steps, steps on the layer dedup at
     # STATIC_FACTOR, at factor 0.01, the entry script's epoch; the online
     # script's eval steps and train steps (phase 1 and retraining); the
-    # inference script's eval and embed steps, TGN and DySAT
+    # inference script's eval and embed steps, TGN and DySAT; the cache
+    # phase's serial and pipelined train steps, eval batches, steps on the
+    # host-placed store, and the script's two epochs
     paths = {"eval": sl["launches"], "train": tr["launches"],
              "train_att_dropout0": tr["att_dropout0"]["launches"],
              "dedup_train": dd["launches"],
              "dedup_fallback": dd["fallback"]["launches"],
              "dedup_eval": dd["eval"]["launches"], "entry": en["launches"],
              **tg["launches"], **dy["launches"], **ap["launches"],
-             **st["launches"], **on["launches"], **inf["launches"]}
+             **st["launches"], **on["launches"], **inf["launches"],
+             **ca["launches"]}
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())

@@ -88,16 +88,20 @@ def load_dataset(dataset: str, data_dir: Optional[str] = None) \
     return full[:train_end], full[train_end:val_end], full[val_end:], full
 
 
-def load_feat(dataset: str, data_dir: Optional[str] = None):
+def load_feat(dataset: str, data_dir: Optional[str] = None,
+              memmap: bool = False):
     """``(node_feats, edge_feats)`` from ``node_features.npy`` and
     ``edge_features.npy``, None where a file is missing
-    (``data.py:118-134``)."""
+    (``data.py:118-134``); with ``memmap`` each is a read-only memory map
+    of its file."""
     if data_dir is None:
         data_dir = os.path.join(get_project_root_dir(), "data")
+    mmap_mode = "r" if memmap else None
     out = []
     for name in ("node_features.npy", "edge_features.npy"):
         path = os.path.join(data_dir, dataset, name)
-        out.append(np.load(path) if os.path.exists(path) else None)
+        out.append(np.load(path, mmap_mode=mmap_mode)
+                   if os.path.exists(path) else None)
     return tuple(out)
 
 

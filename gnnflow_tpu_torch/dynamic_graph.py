@@ -11,7 +11,10 @@ to a file that :meth:`DynamicGraph.restore_from_file` re-inserts;
 :meth:`DynamicGraph.compact` repacks the live regions to the front of the
 pool.  The host mirror is the source of truth;
 :meth:`DynamicGraph.device_graph` copies it to torch tensors and keeps
-that view until the mirror changes.
+that view until the mirror changes.  A store placed on the host
+(``mem_resource_type`` ``host``, or its aliases ``unified``, ``pinned`` and
+``shared``; ``dynamic_graph.py:97-131``) has its view on the CPU, where it
+is sampled; the cache path moves its MFGs to the card.
 
 The TPU lane tricks (the interleaved triple pool and pair table) have no
 GPU meaning and are left out.  :func:`build_dynamic_graph` builds the
@@ -98,9 +101,18 @@ def _resort_range(pool_ts: np.ndarray, pool_dst: np.ndarray,
     pool_eid[sl] = pool_eid[sl][perm]
 
 
+# the reference's storage names (``gnnflow/dynamic_graph.py:53-62``) and
+# the placement each gives (``dynamic_graph.py:97-102``)
+STORAGE_ALIASES = {"cuda": "hbm", "unified": "host", "pinned": "host",
+                   "shared": "host", "hbm": "hbm", "host": "host"}
+
+
 class DynamicGraph:
     """Dynamic graph with incremental, time-ordered edge insertion.
 
+    ``mem_resource_type`` places the device view: ``hbm`` (alias
+    ``cuda``) on the card, ``host`` (aliases ``unified``, ``pinned``,
+    ``shared``) on the CPU; ``placement`` holds the placement.
     A vertex whose region fills moves to a region of the next power of two
     edges, at least ``minimum_block_size`` (the JAX package's default
     ``insertion_policy="insert"`` with ``adaptive_block_size=True``).
@@ -110,7 +122,13 @@ class DynamicGraph:
     def __init__(self, initial_pool_size: int = 1 << 20,
                  maximum_pool_size: int = 1 << 26,
                  minimum_block_size: int = 16,
-                 spill_dir: Optional[str] = None):
+                 spill_dir: Optional[str] = None,
+                 mem_resource_type: str = "hbm"):
+        placement = STORAGE_ALIASES.get(mem_resource_type.lower())
+        if placement is None:
+            raise ValueError(
+                f"Invalid memory resource type: {mem_resource_type}")
+        self.placement = placement
         self.minimum_block_size = int(max(1, minimum_block_size))
         self.maximum_pool_size = int(maximum_pool_size)
         self.spill_dir = spill_dir or os.path.join(get_project_root_dir(),
@@ -416,8 +434,15 @@ class DynamicGraph:
         (``add_edges``, ``offload_old_blocks``, ``compact``,
         ``restore_from_file``), ``device`` changes or ``refresh`` is set
         (``dynamic_graph.py:506-545``).  The view is a copy, also on the
-        CPU, so a later change of the mirror never shows through it."""
+        CPU, so a later change of the mirror never shows through it.  A
+        store placed on the host has its view on the CPU only: asking it
+        for another device raises."""
         dev = resolve_device(device)
+        if self.placement == "host" and dev.type != "cpu":
+            raise ValueError(
+                "this store is placed on the host (mem_resource_type="
+                "'host'): its view is device_graph('cpu'), sampled on the "
+                "CPU, and the cache path moves the MFGs to the card")
         if self._device_graph is not None and self._view_device == dev \
                 and not (self._dirty or refresh):
             return self._device_graph
@@ -447,17 +472,15 @@ def build_dynamic_graph(initial_pool_size: int, maximum_pool_size: int,
     package's ``build_dynamic_graph`` without a seed dataset.
     ``undirected`` is the caller's ``add_reverse`` when it ingests, and the
     feature flags say which feature files a dataset has; neither shapes
-    the store.  Raises on options the port's store lacks: host placement
-    and the ``replace`` insertion policy."""
+    the store.  ``mem_resource_type`` places it (:data:`STORAGE_ALIASES`).
+    Raises on the ``replace`` insertion policy, which the port's store
+    lacks."""
     del undirected, node_feature, edge_feature
-    if mem_resource_type.lower() not in ("hbm", "cuda"):
-        raise NotImplementedError(
-            f"mem_resource_type={mem_resource_type!r} (a host-resident "
-            "store) is not ported yet (ROADMAP.md, modules to port, item 2)")
     if insertion_policy.lower() != "insert":
         raise NotImplementedError(
             f"insertion_policy={insertion_policy!r} is not ported yet "
-            "(ROADMAP.md, modules to port, item 2)")
+            "(ROADMAP.md, modules to port, item 14)")
     return DynamicGraph(initial_pool_size=initial_pool_size,
                         maximum_pool_size=maximum_pool_size,
-                        minimum_block_size=minimum_block_size)
+                        minimum_block_size=minimum_block_size,
+                        mem_resource_type=mem_resource_type)

@@ -5,8 +5,8 @@ or GAT on one card.
         --model TGN --data SYNTHETIC --epoch 3 [--device cpu]
 
 Counterpart of ``scripts/offline_edge_prediction.py`` (its CLI at
-``:43-93`` and its protocol at ``:123-381``, without the feature cache,
-multiple devices or ``lax.scan``): chronological batches with a random
+``:43-93`` and its protocol at ``:123-381``, without multiple devices or
+``lax.scan``): chronological batches with a random
 epoch start, memory reset at every epoch after the first, validation AP
 and AUC after every epoch, a best-AP checkpoint with a memory backup,
 early stopping, and a final test on the best checkpoint (the memory
@@ -21,10 +21,23 @@ calibrates on its first batch.  ``--snapshot-time-window`` overrides the
 config's window.  After every epoch a model on the layer or snapshot
 dedup logs its tier takes and calibrates again when more than 30% of at
 least 20 steps since the last calibration fell back to the padded path
-(``:341-356``).  One flag
-is new: ``--device`` (``cuda`` by default, ``cpu`` for the plain PyTorch
-path).  Options the port lacks raise an error naming the ROADMAP.md item
-that brings them.
+(``:341-356``).  Every epoch logs its phases (``PhaseTimer``).
+
+The feature cache (``--cache LRUCache|LFUCache|FIFOCache|GNNLabStaticCache``
+with ``--edge-cache-ratio`` and ``--node-cache-ratio``, ``:168-236,
+258-263, 296-330, 361-363``): a
+:class:`~gnnflow_tpu_torch.temporal_sampler.TemporalSampler` samples each
+batch, the cache fetches its features, and
+``Trainer.train_step_prefetched`` steps, in the phases ``sample``,
+``feature`` and ``train``; eval goes the same way.  ``--pipeline``
+samples and fetches batch k+1 on a worker thread while batch k trains;
+``--cache-transfer-dtype bfloat16`` sends missed rows as bf16;
+``--features-on-host`` (needs ``--cache``) keeps the feature tables off
+the card.  After every epoch the cache's hit ratios are logged.  A store
+that the data config places on the host (GDELT, MAG) is sampled on the
+CPU and needs ``--cache``.  One flag is new: ``--device`` (``cuda`` by
+default, ``cpu`` for the plain PyTorch path).  Options the port lacks
+raise an error naming the ROADMAP.md item that brings them.
 
 Datasets: the reference's ``edges.csv`` under ``--data-dir``;
 ``--data SYNTHETIC`` (or a dataset missing on disk) generates a
@@ -45,6 +58,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from gnnflow_tpu_torch.cache import CACHES
 from gnnflow_tpu_torch.config import get_default_config
 from gnnflow_tpu_torch.data import (DstRandEdgeSampler, get_batches,
                                     load_dataset, load_feat,
@@ -52,11 +66,14 @@ from gnnflow_tpu_torch.data import (DstRandEdgeSampler, get_batches,
 from gnnflow_tpu_torch.dynamic_graph import build_dynamic_graph
 from gnnflow_tpu_torch.models import memory as memory_lib
 from gnnflow_tpu_torch.models.factory import build_model
+from gnnflow_tpu_torch.pipeline import FeaturePipeline
+from gnnflow_tpu_torch.temporal_sampler import TemporalSampler
 from gnnflow_tpu_torch.train import Trainer
 from gnnflow_tpu_torch.utils import (EarlyStopMonitor,
                                      average_precision_score, roc_auc_score)
 from gnnflow_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                 save_checkpoint)
+from gnnflow_tpu_torch.utils.profiling import PhaseTimer
 
 DATASETS = ["REDDIT", "GDELT", "LASTFM", "MAG", "MOOC", "WIKI", "SYNTHETIC"]
 MODELS = ["TGN", "TGAT", "DySAT", "GRAPHSAGE", "GAT", "APAN"]
@@ -77,20 +94,28 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--ingestion-batch-size", type=int, default=1000)
     parser.add_argument("--num-devices", type=int, default=1)
-    parser.add_argument("--cache", default=None)
-    parser.add_argument("--pipeline", action="store_true")
+    parser.add_argument("--cache", default=None, choices=sorted(CACHES))
+    parser.add_argument("--pipeline", action="store_true",
+                        help="sample and fetch batch k+1 on a worker "
+                             "thread while batch k trains (cache mode "
+                             "only)")
     parser.add_argument("--edge-cache-ratio", type=float, default=0)
     parser.add_argument("--calibrate", action="store_true",
                         help="measure the (nid, ts) duplication on the last "
                              "three train batches and pick the dedup "
                              "factors before training")
     parser.add_argument("--cache-transfer-dtype", default="float32",
-                        choices=["float32", "bfloat16"])
+                        choices=["float32", "bfloat16"],
+                        help="send missed rows host to card as bf16 (half "
+                             "the bytes; values round to bf16)")
     parser.add_argument("--node-cache-ratio", type=float, default=0)
     parser.add_argument("--snapshot-time-window", type=float, default=0)
     parser.add_argument("--synthetic-edges", type=int, default=100_000)
     parser.add_argument("--synthetic-dim-edge", type=int, default=100)
-    parser.add_argument("--features-on-host", action="store_true")
+    parser.add_argument("--features-on-host", action="store_true",
+                        help="keep the feature tables on the host and "
+                             "feed the model through the cache only "
+                             "(requires --cache)")
     parser.add_argument("--memory-storage", default="float32",
                         choices=["float32", "bfloat16"])
     parser.add_argument("--remat-attention", action="store_true")
@@ -105,11 +130,6 @@ def _refuse_unported(parser, args) -> None:
     """Options of the JAX script that the port lacks: an error naming the
     ROADMAP.md item, never a silent default."""
     unported = [
-        (args.cache or args.pipeline or args.edge_cache_ratio
-         or args.node_cache_ratio or args.features_on_host
-         or args.cache_transfer_dtype != "float32",
-         "--cache, --pipeline, the cache ratios, --cache-transfer-dtype and "
-         "--features-on-host", "item 11"),
         (args.num_devices != 1, "--num-devices > 1", "item 12"),
         (args.memory_storage != "float32", "--memory-storage bfloat16",
          "item 14"),
@@ -139,13 +159,18 @@ def _load_data(args):
 
 
 def main(argv=None, checkpoint_path: Optional[str] = None) -> dict:
-    """Run the protocol; returns ``{"val_ap", "val_auc"}`` (one per epoch
-    run), ``best_epoch``, ``test_ap`` and ``test_auc``.  The checkpoint
-    goes to ``checkpoint_path`` (default ``<MODEL>_torch.ckpt`` at the
-    repository root)."""
+    """Run the protocol; returns ``{"val_ap", "val_auc", "phases",
+    "cache_node_hit", "cache_edge_hit"}`` (one per epoch run: the phase
+    timer's summary and, with ``--cache``, the epoch's hit ratios),
+    ``best_epoch``, ``test_ap`` and ``test_auc``.  The checkpoint goes to
+    ``checkpoint_path`` (default ``<MODEL>_torch.ckpt`` at the repository
+    root)."""
     parser = make_parser()
     args = parser.parse_args(argv)
     _refuse_unported(parser, args)
+    if args.features_on_host and not args.cache:
+        parser.error("--features-on-host requires --cache (features "
+                     "reach the model only through the cache buffer)")
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
     checkpoint_path = checkpoint_path or os.path.join(
@@ -165,6 +190,12 @@ def main(argv=None, checkpoint_path: Optional[str] = None) -> dict:
                  dname, len(train_data), len(val_data), len(test_data))
 
     dgraph = build_dynamic_graph(**data_config)
+    if dgraph.placement == "host" and not args.cache:
+        # the fused step samples on the trainer's device; only the cache
+        # path's sampler samples a store on the host
+        parser.error(f"the {args.data} data config places the graph store "
+                     "on the host (mem_resource_type='host'): it is "
+                     "sampled on the CPU, so it needs --cache")
     t0 = time.time()
     step = args.ingestion_batch_size
     for lo in range(0, len(full_data), step):
@@ -185,11 +216,27 @@ def main(argv=None, checkpoint_path: Optional[str] = None) -> dict:
     batch_size = model_config["batch_size"]
     lr = args.lr * math.sqrt(args.num_devices)
     trainer = Trainer(model, lr=lr, device=device, **trainer_kwargs)
-    efs, nfs = (None if t is None else
+    # with --features-on-host the tables never reach the card
+    efs, nfs = (None if t is None or args.features_on_host else
                 torch.from_numpy(np.asarray(t, np.float32)).to(device)
                 for t in (edge_feats, node_feats))
-    dg = dgraph.device_graph(device)
+    dg = dgraph.device_graph("cpu" if dgraph.placement == "host"
+                             else device)
     state = trainer.init_state(num_nodes, seed=args.seed)
+
+    cache = None
+    if args.cache:
+        cache = CACHES[args.cache](
+            args.edge_cache_ratio, args.node_cache_ratio, num_nodes,
+            dgraph.num_edges(), node_feats, edge_feats,
+            transfer_dtype=args.cache_transfer_dtype, device=device)
+        sampler = TemporalSampler(dgraph, device=device, **trainer_kwargs)
+        if args.cache == "GNNLabStaticCache":
+            cache.init_cache(sampler=sampler, train_data=train_data,
+                             pre_sampling_rounds=2, batch_size=batch_size)
+        else:
+            cache.init_cache()
+        logging.info("cache mem size: %.2f MB", cache.get_mem_size() / 1e6)
 
     # windowed snapshots fill up over the stream, so their caps are
     # measured on the stream's last train batches
@@ -206,12 +253,22 @@ def main(argv=None, checkpoint_path: Optional[str] = None) -> dict:
     test_neg = DstRandEdgeSampler(full_data.dst, seed=args.seed + 2)
     rng = np.random.RandomState(args.seed)
 
+    def cached_step(batch, train):
+        mfgs = sampler.sample(batch.target_nodes, batch.ts)
+        nf, ef = cache.fetch_feature(mfgs, batch.eids)
+        return trainer.train_step_prefetched(
+            state, mfgs, nf, ef, cache.target_edge_features, batch,
+            train=train)
+
     def run_eval(data, neg_sampler):
         scores, labels = [], []
         loss_sum = 0.0
         for batch in get_batches(data, batch_size, neg_sampler):
-            _, loss, pos, neg = trainer.eval_step(state, dg, efs, batch,
-                                                  node_feats=nfs)
+            if cache is not None:
+                _, loss, pos, neg = cached_step(batch, train=False)
+            else:
+                _, loss, pos, neg = trainer.eval_step(state, dg, efs, batch,
+                                                      node_feats=nfs)
             k = batch.num_valid
             logits = torch.cat([pos[:k], neg[:k]]).float().cpu().numpy()
             scores.append(1 / (1 + np.exp(-logits)))
@@ -220,22 +277,48 @@ def main(argv=None, checkpoint_path: Optional[str] = None) -> dict:
         y, t = np.concatenate(scores), np.concatenate(labels)
         return average_precision_score(t, y), roc_auc_score(t, y), loss_sum
 
-    out = {"val_ap": [], "val_auc": []}
+    out = {"val_ap": [], "val_auc": [], "phases": [], "cache_node_hit": [],
+           "cache_edge_hit": []}
     best_ap, best_e = 0.0, 0
     early_stopper = EarlyStopMonitor()
+    timer = PhaseTimer()
     logging.info("starting training loop")
     for epoch in range(args.epoch):
         epoch_start = time.time()
         total_samples = 0
         it = 0
+        if cache is not None:
+            cache.reset()
         # the reference resets TGN memory at every epoch start after the
         # first, so the validation pass's state never leaks into training
         if epoch > 0 and state.memory is not None:
             memory_lib.reset_memory(state.memory)
-        for batch in get_batches(train_data, batch_size, train_neg,
-                                 num_chunks=args.num_chunks, rng=rng):
-            _, loss, _, _ = trainer.train_step(state, dg, efs, batch,
-                                               node_feats=nfs)
+        batches = get_batches(train_data, batch_size, train_neg,
+                              num_chunks=args.num_chunks, rng=rng)
+        if cache is not None and args.pipeline:
+            # batch k+1's sample and fetch overlap batch k's step
+            batches = FeaturePipeline(sampler, cache, depth=2).run(batches)
+        for item in batches:
+            if cache is not None and args.pipeline:
+                batch, mfgs, nf, ef, tef = item
+                with timer("train"):
+                    _, loss, _, _ = trainer.train_step_prefetched(
+                        state, mfgs, nf, ef, tef, batch)
+            elif cache is not None:
+                batch = item
+                with timer("sample"):
+                    mfgs = sampler.sample(batch.target_nodes, batch.ts)
+                with timer("feature"):
+                    nf, ef = cache.fetch_feature(mfgs, batch.eids)
+                with timer("train"):
+                    _, loss, _, _ = trainer.train_step_prefetched(
+                        state, mfgs, nf, ef, cache.target_edge_features,
+                        batch)
+            else:
+                batch = item
+                with timer("train"):
+                    _, loss, _, _ = trainer.train_step(state, dg, efs, batch,
+                                                       node_feats=nfs)
             total_samples += 3 * batch.num_valid
             it += 1
             if it % args.print_freq == 0:
@@ -244,6 +327,9 @@ def main(argv=None, checkpoint_path: Optional[str] = None) -> dict:
         if str(device).startswith("cuda"):
             torch.cuda.synchronize()
         epoch_time = time.time() - epoch_start
+        logging.info("epoch %d phases: %s", epoch, timer.format())
+        out["phases"].append(timer.summary())
+        timer.reset()
         # the layer dedup's takes; calibrate again when the stream drifted
         # so far that more than 30% of the steps fell back (min 20 steps)
         tstats = trainer.tier_take_stats(state)
@@ -263,6 +349,11 @@ def main(argv=None, checkpoint_path: Optional[str] = None) -> dict:
         logging.info("epoch %d: time %.2fs, throughput %.0f samples/s, "
                      "val ap %.4f auc %.4f", epoch, epoch_time,
                      total_samples / epoch_time, ap, auc)
+        if cache is not None:
+            logging.info("cache node hit %.3f edge hit %.3f",
+                         cache.cache_node_ratio, cache.cache_edge_ratio)
+            out["cache_node_hit"].append(cache.cache_node_ratio)
+            out["cache_edge_hit"].append(cache.cache_edge_ratio)
         if ap > best_ap:
             best_ap, best_e = ap, epoch
             save_checkpoint(checkpoint_path, model.state_dict(),

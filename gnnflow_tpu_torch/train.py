@@ -42,11 +42,14 @@ the JAX package has ``lax.cond``, so one host sync per decision:
 
 A step takes the snapshot dedup, then the block compaction, then the
 layer dedup, then the padded path, the first that is set
-(``:1209-1236``).  The GRU-table path is an opt-in variant not ported yet
-(ROADMAP.md).
+(``:1209-1236``).  ``train_step_prefetched`` (``:1267-1339``) is the
+feature cache's step: it takes MFGs sampled outside it and features a
+cache fetched, and runs only the memory dedup.  The GRU-table path is an
+opt-in variant not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import logging
 import math
@@ -146,6 +149,14 @@ def fetch_node_features(mfgs: List[List[MFG]],
     table = node_feats.to(dtype)
     return [_gather_rows(table, m.all_nodes(), m.all_mask())
             for m in mfgs[0]]
+
+
+def _mfg_to(mfg: MFG, device: torch.device) -> MFG:
+    """``mfg`` with every tensor on ``device``'s type of device."""
+    if mfg.root_nids.device.type == device.type:
+        return mfg
+    return MFG(**{f.name: getattr(mfg, f.name).to(device)
+                  for f in dataclasses.fields(mfg)})
 
 
 def dedup_cap(factor: float, num_all: int) -> int:
@@ -378,8 +389,9 @@ class Trainer:
         return (float(ld),)
 
     def _uniform(self, gen: torch.Generator, shape) -> torch.Tensor:
-        """Uniform sampling's draws in [0, 1), float32."""
-        return torch.rand(shape, generator=gen, device=self.device)
+        """Uniform sampling's draws in [0, 1), float32, on ``gen``'s
+        device."""
+        return torch.rand(shape, generator=gen, device=gen.device)
 
     def _window_kw(self) -> dict:
         return dict(strategy=self.strategy, num_snapshots=self.num_snapshots,
@@ -637,6 +649,65 @@ class Trainer:
         state.step += 1
         return state, loss.detach(), pos[:, 0].detach(), neg[:, 0].detach()
 
+    def train_step_prefetched(self, state: TrainState, mfgs, nfs, efs, tef,
+                              batch: Batch, train: bool = True):
+        """One step over MFGs sampled outside the trainer (a
+        :class:`~gnnflow_tpu_torch.temporal_sampler.TemporalSampler`) and
+        the features a :class:`~gnnflow_tpu_torch.cache.Cache` fetched for
+        them (``train.py:1267-1339``): ``nfs[s]`` the innermost MFGs'
+        [B·(1+F), dim_node] node features (None, or a list of None,
+        without), ``efs[l][s]`` each MFG's [B, F, dim_edge] edge features,
+        ``tef`` the batch's [B, dim_edge] target-edge features, which the
+        mails carry.  MFGs sampled on the CPU (a store placed on the host)
+        move to the trainer's device first (``:1331-1336``).
+
+        The memory dedup runs where its factor is set, for models with
+        memory and without node features (``:1273-1274``; one host sync);
+        no layer dedup, snapshot dedup or block compaction runs, and this
+        step never calibrates.  Node features reach the model in the dtype
+        :meth:`train_step` gathers them in.  ``train=True`` takes an Adam
+        step and remakes the model's compute-dtype weight copies, as
+        :meth:`train_step`; ``train=False`` is the cache path's eval step
+        (``scripts/offline_edge_prediction.py:231-236``).  Both write
+        memory back (models with memory).
+
+        Returns ``(state, loss, pos_logits [B], neg_logits [B])``,
+        detached."""
+        mfgs = [[_mfg_to(m, self.device) for m in layer] for layer in mfgs]
+        valid = torch.zeros(batch.batch_size, dtype=torch.bool)
+        valid[: batch.num_valid] = True
+        valid = valid.to(self.device)
+        state.dedup_n_uniq = None
+        with torch.no_grad():
+            mem_input = self._mem_input(
+                state, mfgs[0][0], None,
+                dedup=getattr(self.model, "dim_node", 0) == 0) \
+                if self.model.use_memory else None
+            node_in = None
+            if nfs is not None and not isinstance(
+                    mem_input, memory_lib.DedupMemoryInput):
+                dtype = self.model.node_feat_dtype(train)
+                node_in = [None if nf is None else nf.to(dtype)
+                           for nf in nfs]
+        with torch.set_grad_enabled(train):
+            pos, neg, last = self.model(mfgs, efs, mem_input, train=train,
+                                        generator=state.dropout_gen,
+                                        node_feats=node_in)
+            loss = link_pred_loss(pos, neg, valid)
+        if train:
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            state.optimizer.step()
+            self.model.cast_weights()
+            state.step += 1
+        if last is not None:
+            with torch.no_grad():
+                memory_lib.update_mem_mail(
+                    state.memory, last["last_updated_nid"],
+                    last["last_updated_memory"], last["last_updated_ts"],
+                    edge_feats=tef, valid=valid)
+        return state, loss.detach(), pos[:, 0].detach(), neg[:, 0].detach()
+
     @torch.no_grad()
     def eval_step(self, state: TrainState, dg: DeviceGraph,
                   edge_feats: Optional[torch.Tensor], batch: Batch, *,
@@ -749,8 +820,9 @@ class Trainer:
         innermost MFG's memory instances (None without memory); where the
         layer dedup applies, the pair (unique fraction at the first
         boundary, worst at deeper boundaries; 0.0 without any), each the
-        largest over the snapshots, else None."""
-        dev = self.device
+        largest over the snapshots, else None.  The probe samples where
+        the store's view lies (the CPU for a store placed on the host)."""
+        dev = dg.row_off.device
         gen = torch.Generator(device=dev).manual_seed(0)
         ts = np.asarray(ts, np.float32)
         if self.is_static:               # every probe, shifted or not

@@ -3,7 +3,7 @@ early stopping, memory reset/backup/restore, checkpoints, the model
 factory, ``build_dynamic_graph`` and the pandas-free ``edges.csv``
 loader (each against the JAX package where it has a counterpart), and two
 epochs of ``python -m gnnflow_tpu_torch.scripts.offline_edge_prediction``
-on the CPU."""
+on the CPU; then its feature-cache path, serial and pipelined."""
 import logging
 import os
 
@@ -118,9 +118,11 @@ def test_build_dynamic_graph_from_data_configs():
     g = build_dynamic_graph(**data_cfg)
     assert isinstance(g, DynamicGraph)
     assert g.minimum_block_size == data_cfg["minimum_block_size"]
+    assert g.placement == "hbm"
+    # GDELT's config places the store on the host (a small pool here)
     _, gdelt = config.get_default_config("tgn", "gdelt")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_dynamic_graph(**gdelt)
+    assert build_dynamic_graph(**{**gdelt, "initial_pool_size": 4096}
+                               ).placement == "host"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_dynamic_graph(**{**data_cfg, "insertion_policy": "replace"})
 
@@ -166,10 +168,8 @@ def test_build_model_apan():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--cache", "LRUCache"], ["--num-devices", "2"],
-    ["--memory-storage", "bfloat16"], ["--remat-attention"], ["--use-scan"],
-    ["--pipeline"], ["--features-on-host"],
-    ["--cache-transfer-dtype", "bfloat16"]])
+    ["--num-devices", "2"], ["--memory-storage", "bfloat16"],
+    ["--remat-attention"], ["--use-scan"]])
 def test_entry_refuses_unported_flags(flags, capsys):
     with pytest.raises(SystemExit):
         entry.main(["--model", "TGN", "--data", "SYNTHETIC", *flags])
@@ -261,3 +261,93 @@ def test_entry_trains_tgn_with_node_features_on_cpu(tmp_path):
         assert 0.0 < v <= 1.0
     params = load_checkpoint(path)["params"]
     assert params["updater.node_feat_proj.kernel"].shape == (8, 100)
+
+
+# --calibrate puts the prefetched steps on the memory dedup, which keeps
+# the GRU's plain version on the CPU short
+CACHE = ["--model", "TGN", "--data", "SYNTHETIC", "--epoch", "1",
+         "--synthetic-edges", "3000", "--synthetic-dim-edge", "16",
+         "--num-chunks", "1", "--cache", "LRUCache", "--edge-cache-ratio",
+         "0.3", "--calibrate", "--device", "cpu"]
+
+
+@pytest.fixture(scope="module")
+def cache_runs(tmp_path_factory):
+    """One epoch of the cache path with the tables kept on the host,
+    serial and pipelined: ``{mode: (out, log messages)}``."""
+    runs = {}
+    root = logging.getLogger()
+    level = root.level
+    for mode, extra in (("serial", []), ("pipeline", ["--pipeline"])):
+        path = str(tmp_path_factory.mktemp(mode) / "TGN_torch.ckpt")
+        handler = _Collect()
+        root.addHandler(handler)
+        root.setLevel(logging.INFO)
+        try:
+            out = entry.main(CACHE + ["--features-on-host"] + extra,
+                             checkpoint_path=path)
+        finally:
+            root.removeHandler(handler)
+            root.setLevel(level)
+        runs[mode] = (out, handler.messages)
+    return runs
+
+
+class _Collect(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+@pytest.mark.parametrize("mode", ["serial", "pipeline"])
+def test_entry_cache_path_on_cpu(cache_runs, mode):
+    """The cache path logs its size, the epoch's phases (sample, feature
+    and train when serial; train when pipelined) and hit ratios, and
+    returns them; every AP is finite."""
+    out, msgs = cache_runs[mode]
+    for v in out["val_ap"] + out["val_auc"] + [out["test_ap"],
+                                               out["test_auc"]]:
+        assert 0.0 < v <= 1.0
+    assert any(m.startswith("cache mem size:") for m in msgs)
+    assert any(m.startswith("calibration:") and "'dedup_factor': 0." in m
+               for m in msgs)
+    assert sum(m.startswith("cache node hit") for m in msgs) == 1
+    assert any(m.startswith("epoch 0 phases: ") for m in msgs)
+    assert 0.0 < out["cache_edge_hit"][0] <= 1.0
+    assert out["cache_node_hit"] == [0.0]       # no node features
+    want = {"train"} if mode == "pipeline" else {"sample", "feature",
+                                                 "train"}
+    assert set(out["phases"][0]) == want
+
+
+def test_entry_pipeline_equals_serial(cache_runs):
+    """The pipeline fetches on a worker thread: the same hit ratios, APs
+    and AUCs as the serial loop."""
+    serial, piped = cache_runs["serial"][0], cache_runs["pipeline"][0]
+    for k in ("val_ap", "val_auc", "test_ap", "test_auc", "cache_edge_hit"):
+        assert serial[k] == piped[k], k
+
+
+def test_entry_cache_bf16_transfer_on_cpu(tmp_path):
+    out = entry.main(CACHE + ["--cache-transfer-dtype", "bfloat16"],
+                     checkpoint_path=str(tmp_path / "TGN_torch.ckpt"))
+    assert 0.0 < out["test_ap"] <= 1.0
+    assert 0.0 < out["cache_edge_hit"][0] <= 1.0
+
+
+@pytest.mark.parametrize("flags, message", [
+    (["--features-on-host"], "--features-on-host requires --cache"),
+    (["--data", "GDELT"], "places the graph store on the host")],
+    ids=["features-on-host", "host-store"])
+def test_entry_cache_flags_need_cache(flags, message, capsys):
+    """``--features-on-host`` without ``--cache`` is the JAX parser's
+    error; a data config that places the store on the host needs
+    ``--cache`` (GDELT's; missing on disk, so its stream is synthetic)."""
+    argv = ["--model", "TGN", "--data", "SYNTHETIC", "--synthetic-edges",
+            "3000", "--device", "cpu"]
+    with pytest.raises(SystemExit):
+        entry.main(argv + flags)
+    assert message in capsys.readouterr().err
