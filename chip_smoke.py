@@ -125,6 +125,26 @@ Phases (each prints one line; any failure raises and exits non-zero):
    eval and ``embed_step`` batches; the npz's keys, shapes and node ids
    are checked), then DySAT from random init at batch 4000 over the
    windows 0 and 5000 (K3).
+15. cache: TGN through the feature cache (``phase_cache``'s docstring).
+16. parallel: multi-GPU training at world size 1 on NCCL (a process
+   group over a ``file://`` rendezvous under ``build/``): 20 TGN train
+   steps (bf16, REDDIT defaults, batch 4000) and 10 eval batches through
+   ``shard_trainer`` beside the plain trainer's, and 3 f32 steps at
+   dropout 0 held to the plain ``Trainer`` within 1e-5 (losses,
+   parameters, memory); the stream dispatched into 4 hash partitions,
+   all owned by rank 0, whose routed and replicated MFGs (2 layers,
+   recent and uniform) equal the single store's bit for bit on 3
+   batches, with routed layer sampling timed at 12,000 and 132,000 roots
+   and the routed load's CV; the same TGN paths and f32 check through
+   ``PartitionedTrainer`` (routed); TGAT eval and 5 train steps at
+   attention dropout 0 on the layer dedup at 0.5 through routed sampling
+   (K3, K4); one epoch of the partitioned script at ``--num-devices 1
+   --num-partitions 4``, joining the group.  Lines ``[parallel]`` with
+   ``path`` dp, store, partitioned, tgat and script: ms per step and per
+   eval batch (CUDA events, median) beside the plain trainer's, host ms,
+   the f32 errors, the store's dispatch seconds and partition sizes, the
+   layer sampling ms, the load CV, the script's APs.  K1, K2, K3 and K4
+   must each launch on these paths.
 
 Then one JSON line with every kernel's numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.
@@ -1073,7 +1093,7 @@ def phase_entry(torch, kernels):
 PROBE_BATCH = 80        # of the 169 batches of 4000 in the stream
 
 
-def _tgat(att_dropout=None, layer_dedup="auto", device="cuda"):
+def _tgat(att_dropout=None, layer_dedup="auto", device="cuda", cls=None):
     """TGAT as bench.py:127-160 builds it: the REDDIT defaults of the
     config registry (2 layers, fanouts [10, 10], uniform sampling,
     dropout and attention dropout 0.1, 2 heads, time and embedding dims
@@ -1088,8 +1108,8 @@ def _tgat(att_dropout=None, layer_dedup="auto", device="cuda"):
     if att_dropout is not None:
         mc["att_dropout"] = att_dropout
     model, kw = build_model("TGAT", mc, 0, 172, seed=0, device=device)
-    return model, Trainer(model, lr=1e-4, layer_dedup=layer_dedup,
-                          device=device, **kw)
+    return model, (cls or Trainer)(model, lr=1e-4, layer_dedup=layer_dedup,
+                                   device=device, **kw)
 
 
 def _timed_steps(torch, step, batches):
@@ -3664,6 +3684,305 @@ def _self_check_static(torch, card, full, graphs, num_nodes, failed):
     return out
 
 
+
+PARALLEL_PARTITIONS = 4   # hash partitions of the [parallel] phase
+PARALLEL_TOL = 1e-5       # f32 DP / partitioned steps against the plain ones
+
+
+def _f32_held(torch, make, dg_, table, stream, batches):
+    """3 f32 TGN train steps at dropout 0 of ``make(model)`` over ``dg_``
+    and ``table`` against the plain ``Trainer`` over the stream's store,
+    from one set of weights: the largest loss (relative), parameter and
+    memory (absolute) differences, after each step; raises above
+    ``PARALLEL_TOL``."""
+    from gnnflow_tpu_torch.models.dgnn import DGNN
+    from gnnflow_tpu_torch.train import Trainer
+    cfg = dict(TGN, dropout=0.0, att_dropout=0.0)
+    num_nodes = stream["g"].max_vertex_id() + 1
+    sides = []
+    for build in (lambda m: Trainer(m, fanouts=[10], lr=1e-4,
+                                    dedup_factor=None, device="cuda"),
+                  make):
+        model = DGNN(dim_edge=172, seed=0, device="cuda", **cfg)
+        trainer = build(model)
+        sides.append((model, trainer, trainer.init_state(num_nodes, 0)))
+    (pm, pt, ps), (m, t, st) = sides
+    errs = {"loss": [], "params": [], "memory": []}
+    for b in batches:
+        want = float(pt.train_step(ps, stream["dg"], stream["ef"], b)[1])
+        got = float(t.train_step(st, dg_, table, b)[1])
+        errs["loss"].append(abs(got - want) / max(abs(want), 1e-12))
+        errs["params"].append(max(float((a - c).abs().max()) for a, c in
+                                  zip(m.parameters(), pm.parameters())))
+        errs["memory"].append(max(
+            float((getattr(st.memory, k) - getattr(ps.memory, k))
+                  .abs().max()) for k in ("node_memory", "mailbox",
+                                           "node_memory_ts", "mailbox_ts")))
+    worst = max(max(v) for v in errs.values())
+    if not worst <= PARALLEL_TOL:
+        raise AssertionError(f"f32 steps off the plain Trainer: {errs}")
+    return errs
+
+
+def phase_parallel(torch, kernels, stream):
+    """Multi-GPU training at world size 1 on NCCL (one card): a process
+    group over a ``file://`` rendezvous under ``build/``, then
+
+    - DP: 20 TGN train steps (bf16, REDDIT defaults, batch 4000) and 10
+      eval batches through ``shard_trainer`` (K1 and K2 once a step, K3
+      once an eval batch), timed beside the plain trainer's steps on the
+      same batches; 3 f32 steps at dropout 0 held against the plain
+      ``Trainer`` (losses, parameters, memory);
+    - partitioned: ``dispatch_full_dataset`` splits the stream into 4 hash
+      partitions, all owned by rank 0; routed and replicated MFGs (2
+      layers of fanout 10, recent, and uniform on the same draws) equal
+      the single store's ``sample_hops`` bit for bit on 3 batches; routed
+      layer sampling timed at 12,000 and 132,000 roots beside the single
+      store and the replicated path, and the routed load's CV over the
+      train batches; TGN train and eval through
+      ``PartitionedTrainer(routed)`` as above, with its own 3 f32 steps
+      against the plain ``Trainer``; TGAT (``_tgat``) eval and 5 train
+      steps at attention dropout 0 on the layer dedup at factor 0.5
+      through routed sampling (K3 twice a batch or step, K4 once a step
+      that takes the tier);
+    - script: one epoch of ``offline_edge_prediction_partitioned`` at
+      ``--num-devices 1 --num-partitions 4``, which joins the group.
+
+    The group is destroyed at the end.  Returns the launches of each
+    path."""
+    import numpy as np
+    import torch.distributed as dist
+    from gnnflow_tpu_torch.models.dgnn import DGNN
+    from gnnflow_tpu_torch.ops import _build
+    from gnnflow_tpu_torch.ops.sampling import sample_hops, sample_layer
+    from gnnflow_tpu_torch.parallel import (
+        PartitionedDynamicGraph, PartitionedTrainer, dispatch_full_dataset,
+        get_partitioner, initialize, routed_load_stats,
+        sample_hops_partitioned, sample_hops_routed, sample_layer_replicated,
+        sample_layer_routed, shard_trainer, shutdown)
+    from gnnflow_tpu_torch.scripts import \
+        offline_edge_prediction_partitioned as part_script
+    from gnnflow_tpu_torch.train import Trainer
+    from gnnflow_tpu_torch.utils import average_precision_score
+    g, dg, ef, train, full = stream["g"], stream["dg"], stream["ef"], \
+        stream["train"], stream["full"]
+    num_nodes = g.max_vertex_id() + 1
+    B, warm, steps, ev_runs, extra = 4000, 3, 20, 10, 5
+    tb = _take(train, B, train.dst, warm + steps)
+    eb = _take(full[len(train):], B, full.dst, ev_runs)
+    launches, result = {}, {}
+
+    def counts():
+        return {name: fn.launches for name, fn in kernels.items()}
+
+    def expect(k1=0, k2=0, k3=0, k4=0):
+        return {"gru_memory_fused": k1, "gru_memory_fused_bwd": k2,
+                "neighborhood_attention": k3, "sorted_segment_sum": k4}
+
+    def tgn_trainer(cls, **kw):
+        model = DGNN(dim_edge=172, compute_dtype="bfloat16", seed=0,
+                     device="cuda", **TGN)
+        trainer = cls(model, fanouts=[10], lr=1e-4, device="cuda", **kw)
+        return trainer, trainer.init_state(num_nodes, seed=0)
+
+    def tgn_paths(name, trainer, state, dg_, table, plain, pstate):
+        """Warm-up, timed train steps and eval batches of ``trainer``
+        beside ``plain``'s on the same batches; launch checks."""
+        for b in tb[:warm]:
+            trainer.train_step(state, dg_, table, b)
+            plain.train_step(pstate, dg, ef, b)
+        torch.cuda.synchronize()
+        _reset(kernels)
+        outs, ms, host = _timed_steps(
+            torch, lambda b: trainer.train_step(state, dg_, table, b)[1],
+            tb[warm:])
+        launches[f"parallel_{name}_train"] = counts()
+        _check_launches(launches[f"parallel_{name}_train"],
+                        expect(k1=steps, k2=steps), f"{steps} {name} steps")
+        _, plain_ms, plain_host = _timed_steps(
+            torch, lambda b: plain.train_step(pstate, dg, ef, b)[1],
+            tb[warm:])
+        _reset(kernels)
+        evs, ev_ms, ev_host = _timed_steps(
+            torch, lambda b: trainer.eval_step(state, dg_, table, b), eb)
+        launches[f"parallel_{name}_eval"] = counts()
+        _check_launches(launches[f"parallel_{name}_eval"],
+                        expect(k1=ev_runs, k3=ev_runs),
+                        f"{ev_runs} {name} eval batches")
+        _, plain_ev_ms, _ = _timed_steps(
+            torch, lambda b: plain.eval_step(pstate, dg, ef, b), eb)
+        losses = torch.stack(outs).float().cpu()
+        pos = torch.cat([o[2][:b.num_valid] for o, b in zip(evs, eb)])
+        neg = torch.cat([o[3][:b.num_valid] for o, b in zip(evs, eb)])
+        if not (bool(torch.isfinite(losses).all())
+                and _all_finite(torch, state, trainer.model)
+                and pos.shape[0] == ev_runs * B):
+            raise AssertionError(f"{name}: non-finite values or wrong "
+                                 f"shapes")
+        y = np.concatenate([np.ones(len(pos)), np.zeros(len(neg))])
+        sc = torch.cat([pos, neg]).float().cpu().numpy()
+        return dict(steps=steps, ms_per_step=statistics.median(ms),
+                    host_ms_per_step=statistics.median(host),
+                    plain_ms_per_step=statistics.median(plain_ms),
+                    plain_host_ms_per_step=statistics.median(plain_host),
+                    eval_ms_per_batch=statistics.median(ev_ms),
+                    eval_host_ms_per_batch=statistics.median(ev_host),
+                    plain_eval_ms_per_batch=statistics.median(plain_ev_ms),
+                    mean_loss=float(losses.mean()),
+                    eval_ap=average_precision_score(y, sc))
+
+    rdv = os.path.join(_build.BUILD_DIR, f"rendezvous_{os.getpid()}")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    ctx = initialize(0, 1, "cuda", "file://" + rdv)
+    try:
+        if dist.get_backend() != "nccl" or ctx.world_size != 1:
+            raise AssertionError(f"group {dist.get_backend()} of "
+                                 f"{ctx.world_size}")
+        # ---- DP -------------------------------------------------------
+        plain, pstate = tgn_trainer(Trainer, dedup_factor=None)
+        dp, dstate = tgn_trainer(Trainer, dedup_factor=None)
+        shard_trainer(dp)
+        result["dp"] = tgn_paths("dp", dp, dstate, dg, ef, plain, pstate)
+        result["dp"]["f32_vs_plain"] = _f32_held(
+            torch, lambda m: shard_trainer(Trainer(
+                m, fanouts=[10], lr=1e-4, dedup_factor=None,
+                device="cuda")), dg, ef, stream, tb[warm:warm + 3])
+        _log("parallel", path="dp", **result["dp"])
+        del dp, dstate
+
+        # ---- the partitioned store ------------------------------------
+        t0 = time.perf_counter()
+        pg = PartitionedDynamicGraph(
+            PARALLEL_PARTITIONS, initial_pool_size=1 << 20,
+            maximum_pool_size=1 << 23, minimum_block_size=62)
+        _, store = dispatch_full_dataset(
+            full, None, get_partitioner("hash", PARALLEL_PARTITIONS), pg,
+            edge_feats=ef.cpu().numpy(), ingestion_batch_size=100_000,
+            undirected=True, device="cuda")
+        pdg = pg.device_graph("cuda")
+        torch.cuda.synchronize()
+        dispatch_s = time.perf_counter() - t0
+        mfg_checks = 0
+        fields = ("root_nids", "root_ts", "nbr_nids", "nbr_ts", "nbr_dts",
+                  "nbr_eids", "nbr_mask")
+        for b in tb[:3]:
+            roots = torch.from_numpy(b.target_nodes).cuda()
+            ts = torch.from_numpy(b.ts).cuda()
+            for strategy in ("recent", "uniform"):
+                def draws():
+                    gen = torch.Generator(device="cuda").manual_seed(5)
+                    return lambda _, shape: torch.rand(
+                        shape, generator=gen, device="cuda")
+                kw = dict(fanouts=[10, 10], strategy=strategy)
+                want = sample_hops(dg, roots, ts, draw=draws(), **kw)
+                for fn in (sample_hops_routed, sample_hops_partitioned):
+                    got = fn(pdg, roots, ts, draw=draws(), **kw)
+                    for lg, lw in zip(got, want):
+                        for mg, mw in zip(lg, lw):
+                            for f in fields:
+                                if not torch.equal(getattr(mg, f),
+                                                   getattr(mw, f)):
+                                    raise AssertionError(
+                                        f"{fn.__name__} {strategy}: {f} "
+                                        f"differs from the single store")
+                    mfg_checks += 1
+        mid = sample_hops(dg, roots, ts, fanouts=[10, 10])
+        layer_ms = {}
+        for n, (r, t) in {"roots_12000": (roots, ts),
+                          "roots_132000": (mid[0][0].root_nids,
+                                           mid[0][0].root_ts)}.items():
+            layer_ms[n] = dict(
+                routed=cuda_ms(torch, lambda: sample_layer_routed(
+                    pdg, r, t, fanout=10), iters=10, warmup=2),
+                replicated=cuda_ms(torch, lambda: sample_layer_replicated(
+                    pdg, r, t, fanout=10), iters=10, warmup=2),
+                single_store=cuda_ms(torch, lambda: sample_layer(
+                    dg, r, t, fanout=10), iters=10, warmup=2))
+        cvs = [routed_load_stats(pg.partition_table, b.target_nodes,
+                                 PARALLEL_PARTITIONS)["cv"] for b in tb]
+        result["store"] = dict(
+            partitions=PARALLEL_PARTITIONS, dispatch_s=dispatch_s,
+            partition_edges=[pg.locals[p].num_edges() for p in pg.owned],
+            mfg_checks_bit_equal=mfg_checks, sample_layer_ms=layer_ms,
+            load_cv_mean=float(np.mean(cvs)), load_cv_max=float(max(cvs)),
+            edge_table_bytes=store.memory_usage()["edge"])
+        _log("parallel", path="store", **result["store"])
+
+        # ---- TGN through PartitionedTrainer(routed) -------------------
+        part, ptstate = tgn_trainer(PartitionedTrainer)
+        result["partitioned"] = tgn_paths("partitioned", part, ptstate, pdg,
+                                          store.edge_table, plain, pstate)
+        result["partitioned"]["f32_vs_plain"] = _f32_held(
+            torch, lambda m: PartitionedTrainer(
+                m, fanouts=[10], lr=1e-4, device="cuda"), pdg,
+            store.edge_table, stream, tb[warm:warm + 3])
+        _log("parallel", path="partitioned", **result["partitioned"])
+        del part, ptstate, plain, pstate
+
+        # ---- TGAT on the layer dedup through routed sampling ----------
+        model, tgat = _tgat(att_dropout=0.0, layer_dedup=0.5,
+                            cls=PartitionedTrainer)
+        tstate = tgat.init_state(num_nodes, seed=0)
+        _reset(kernels)
+        _, tev_ms, _ = _timed_steps(
+            torch, lambda b: tgat.eval_step(tstate, pdg, store.edge_table,
+                                            b), eb)
+        launches["parallel_tgat_eval"] = counts()
+        _check_launches(launches["parallel_tgat_eval"], expect(k3=2 * ev_runs),
+                        f"{ev_runs} TGAT eval batches, partitioned")
+        _reset(kernels)
+
+        def tgat_step(b):
+            loss = tgat.train_step(tstate, pdg, store.edge_table, b)[1]
+            return loss, tstate.layer_dedup_compact
+
+        touts, tms, thost = _timed_steps(torch, tgat_step, tb[:extra])
+        launches["parallel_tgat_train"] = counts()
+        compact = [o[1] for o in touts]
+        _check_launches(launches["parallel_tgat_train"],
+                        expect(k3=2 * extra, k4=sum(compact)),
+                        f"{extra} TGAT train steps, partitioned")
+        tl = torch.stack([o[0] for o in touts]).float().cpu()
+        if not bool(torch.isfinite(tl).all()) or sum(compact) < 1:
+            raise AssertionError(f"partitioned TGAT: losses {tl}, steps on "
+                                 f"the dedup {compact}")
+        result["tgat"] = dict(eval_ms_per_batch=statistics.median(tev_ms),
+                              train_steps=extra, compact_steps=sum(compact),
+                              ms_per_step=statistics.median(tms),
+                              host_ms_per_step=statistics.median(thost),
+                              tier_takes=tgat.tier_take_stats(tstate))
+        _log("parallel", path="tgat", **result["tgat"])
+        del model, tgat, tstate, store, pg, pdg
+
+        # ---- the partitioned script, joining the group ----------------
+        _reset(kernels)
+        t0 = time.perf_counter()
+        sout = part_script.main(["--model", "TGN", "--epoch", "1",
+                                 "--num-devices", "1", "--num-partitions",
+                                 str(PARALLEL_PARTITIONS)])
+        torch.cuda.synchronize()
+        launches["parallel_script"] = counts()
+        sl = launches["parallel_script"]
+        if not (sout["val_ap"] and 0.0 < sout["val_ap"][0] <= 1.0
+                and sl["gru_memory_fused"] and sl["gru_memory_fused_bwd"]
+                and sl["neighborhood_attention"]):
+            raise AssertionError(f"partitioned script: {sout}, {sl}")
+        result["script"] = dict(seconds=time.perf_counter() - t0,
+                                launches=sl, **sout)
+        _log("parallel", path="script", **result["script"])
+    finally:
+        shutdown()
+        if os.path.exists(rdv):
+            os.remove(rdv)
+    every = {k: sum(c[k] for c in launches.values())
+             for k in kernels}
+    if not all(every.values()):
+        raise AssertionError(f"a kernel never launched on the parallel "
+                             f"paths: {every}")
+    return dict(launches=launches, **result)
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -3692,6 +4011,7 @@ def main() -> int:
     on = phase_online(torch, kernels)
     inf = phase_inference(torch, kernels, on)
     ca = phase_cache(torch, kernels, on)
+    pa = phase_parallel(torch, kernels, stream)
     # launches on each main path, counted from 0 just before it: TGN eval
     # batches, train steps at att_dropout 0.2 and at 0, dedup train steps,
     # fallback steps and eval batches, the entry script's two epochs; TGAT
@@ -3706,7 +4026,9 @@ def main() -> int:
     # script's eval steps and train steps (phase 1 and retraining); the
     # inference script's eval and embed steps, TGN and DySAT; the cache
     # phase's serial and pipelined train steps, eval batches, steps on the
-    # host-placed store, and the script's two epochs
+    # host-placed store, and the script's two epochs; the parallel phase's
+    # DP and partitioned TGN train steps and eval batches, partitioned
+    # TGAT eval batches and train steps, and the partitioned script's epoch
     paths = {"eval": sl["launches"], "train": tr["launches"],
              "train_att_dropout0": tr["att_dropout0"]["launches"],
              "dedup_train": dd["launches"],
@@ -3714,7 +4036,7 @@ def main() -> int:
              "dedup_eval": dd["eval"]["launches"], "entry": en["launches"],
              **tg["launches"], **dy["launches"], **ap["launches"],
              **st["launches"], **on["launches"], **inf["launches"],
-             **ca["launches"]}
+             **ca["launches"], **pa["launches"]}
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())

@@ -6,8 +6,8 @@ Counterpart of ``gnnflow_tpu/data.py`` (``EdgeTable``, ``load_dataset``,
 The same seed gives byte-identical arrays, so both packages can run one
 stream.  ``load_dataset`` reads, and ``write_synthetic_dataset`` writes,
 the reference's ``edges.csv`` with NumPy instead of pandas, which the
-port does not import; the chunked and partitioned loaders come with the
-multi-GPU slice.
+port does not import.  The chunked and partitioned loaders
+(``data.py:103-204``) are not ported yet (ROADMAP.md, item 12).
 """
 from __future__ import annotations
 
@@ -275,13 +275,21 @@ def _pad_batch(src, dst, neg, ts, eid, batch_size: int) -> Batch:
 def get_batches(data: EdgeTable, batch_size: int,
                 neg_sampler: Optional[DstRandEdgeSampler] = None,
                 num_chunks: int = 0,
-                rng: Optional[np.random.RandomState] = None
-                ) -> Iterator[Batch]:
-    """Iterate fixed-size batches over a chronological edge table.
+                rng: Optional[np.random.RandomState] = None,
+                rank: int = 0, world_size: int = 1,
+                interleave_indices: bool = False) -> Iterator[Batch]:
+    """Iterate fixed-size batches over a chronological edge table
+    (``data.py:393-451``).
 
     ``num_chunks > 0`` skips a random multiple of ``batch_size //
     num_chunks`` edges at the front (the reference's random epoch start).
-    The multi-rank splits of the JAX version come with the multi-GPU slice.
+
+    ``world_size > 1`` splits the batches over ranks: by default rank r
+    takes every ``world_size``-th whole batch, counted from the start, so
+    each rank's stream stays chronological; ``interleave_indices`` gives
+    ``DistributedBatchSampler``'s split, rank r taking the edges whose
+    index is ``r`` modulo ``world_size`` (counted from the start) and
+    packing ``batch_size`` of them per batch.
     """
     start = 0
     if num_chunks > 0:
@@ -289,8 +297,19 @@ def get_batches(data: EdgeTable, batch_size: int,
             rng = np.random.RandomState()
         start = rng.randint(0, num_chunks) * (batch_size // num_chunks)
     n = len(data)
-    for lo in range(start, n, batch_size):
-        sel = np.arange(lo, min(lo + batch_size, n))
+
+    def selections():
+        if interleave_indices and world_size > 1:
+            idx = np.arange(start + ((rank - start) % world_size), n,
+                            world_size)
+            for lo in range(0, len(idx), batch_size):
+                yield idx[lo: lo + batch_size]
+        else:
+            for i, lo in enumerate(range(start, n, batch_size)):
+                if i % world_size == rank:
+                    yield np.arange(lo, min(lo + batch_size, n))
+
+    for sel in selections():
         k = len(sel)
         if neg_sampler is not None:
             neg = neg_sampler.sample(k).reshape(1, k)

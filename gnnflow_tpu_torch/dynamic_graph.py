@@ -52,6 +52,14 @@ class DeviceGraph:
         return self.row_off.shape[0]
 
     @property
+    def device(self) -> torch.device:
+        return self.row_off.device
+
+    def max_ts(self) -> float:
+        """The latest edge timestamp in the view (one host sync)."""
+        return float(self.e_ts.max())
+
+    @property
     def pool_capacity(self) -> int:
         return self.e_dst.shape[0]
 

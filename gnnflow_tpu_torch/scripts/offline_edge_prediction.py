@@ -5,8 +5,8 @@ or GAT on one card.
         --model TGN --data SYNTHETIC --epoch 3 [--device cpu]
 
 Counterpart of ``scripts/offline_edge_prediction.py`` (its CLI at
-``:43-93`` and its protocol at ``:123-381``, without multiple devices or
-``lax.scan``): chronological batches with a random
+``:43-93`` and its protocol at ``:123-381``, without ``lax.scan``):
+chronological batches with a random
 epoch start, memory reset at every epoch after the first, validation AP
 and AUC after every epoch, a best-AP checkpoint with a memory backup,
 early stopping, and a final test on the best checkpoint (the memory
@@ -39,6 +39,16 @@ CPU and needs ``--cache``.  One flag is new: ``--device`` (``cuda`` by
 default, ``cpu`` for the plain PyTorch path).  Options the port lacks
 raise an error naming the ROADMAP.md item that brings them.
 
+``--num-devices N`` trains data parallel over N ranks
+(:func:`~gnnflow_tpu_torch.parallel.dp.shard_trainer`; ``:163,
+185-188``): every rank holds the same global batches, rounded down to a
+multiple of N, and the learning rate is ``lr·sqrt(N)``.  The script spawns
+N processes (card r for rank r, or gloo ranks with ``--device cpu``), or,
+where a process group is already running (``torchrun``, or a caller that
+started one), joins it.  Rank 0 logs and writes the checkpoint; the AP is
+computed over the gathered logits.  The cache path runs its steps
+unsharded on every rank, as the JAX script's.
+
 Datasets: the reference's ``edges.csv`` under ``--data-dir``;
 ``--data SYNTHETIC`` (or a dataset missing on disk) generates a
 deterministic synthetic stream, with 100-dim node features for the
@@ -52,11 +62,13 @@ import argparse
 import logging
 import math
 import os
+import sys
 import time
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gnnflow_tpu_torch.cache import CACHES
 from gnnflow_tpu_torch.config import get_default_config
@@ -66,6 +78,8 @@ from gnnflow_tpu_torch.data import (DstRandEdgeSampler, get_batches,
 from gnnflow_tpu_torch.dynamic_graph import build_dynamic_graph
 from gnnflow_tpu_torch.models import memory as memory_lib
 from gnnflow_tpu_torch.models.factory import build_model
+from gnnflow_tpu_torch.parallel import dist_context
+from gnnflow_tpu_torch.parallel.dp import shard_trainer
 from gnnflow_tpu_torch.pipeline import FeaturePipeline
 from gnnflow_tpu_torch.temporal_sampler import TemporalSampler
 from gnnflow_tpu_torch.train import Trainer
@@ -130,7 +144,6 @@ def _refuse_unported(parser, args) -> None:
     """Options of the JAX script that the port lacks: an error naming the
     ROADMAP.md item, never a silent default."""
     unported = [
-        (args.num_devices != 1, "--num-devices > 1", "item 12"),
         (args.memory_storage != "float32", "--memory-storage bfloat16",
          "item 14"),
         (args.remat_attention, "--remat-attention", "item 14"),
@@ -158,24 +171,43 @@ def _load_data(args):
     return train, val, test, full, nf, ef, "synthetic"
 
 
+def _rank_main(ctx, argv, checkpoint_path) -> None:
+    main(argv, checkpoint_path)
+
+
 def main(argv=None, checkpoint_path: Optional[str] = None) -> dict:
     """Run the protocol; returns ``{"val_ap", "val_auc", "phases",
     "cache_node_hit", "cache_edge_hit"}`` (one per epoch run: the phase
     timer's summary and, with ``--cache``, the epoch's hit ratios),
     ``best_epoch``, ``test_ap`` and ``test_auc``.  The checkpoint goes to
     ``checkpoint_path`` (default ``<MODEL>_torch.ckpt`` at the repository
-    root)."""
+    root).  With ``--num-devices N > 1`` and no process group running,
+    spawns N ranks that run it and returns an empty dict."""
     parser = make_parser()
     args = parser.parse_args(argv)
     _refuse_unported(parser, args)
     if args.features_on_host and not args.cache:
         parser.error("--features-on-host requires --cache (features "
                      "reach the model only through the cache buffer)")
-    logging.basicConfig(level=logging.INFO,
+    if args.num_devices > 1 and not dist.is_initialized():
+        dist_context.spawn(_rank_main, args.num_devices, args.device,
+                           sys.argv[1:] if argv is None else list(argv),
+                           checkpoint_path)
+        return {}
+    ctx = None
+    if args.num_devices > 1:
+        ctx = dist_context.initialize()           # the running group
+        if ctx.world_size != args.num_devices \
+                or ctx.device.type != torch.device(args.device).type:
+            parser.error(f"--num-devices {args.num_devices} --device "
+                         f"{args.device} in a running group of "
+                         f"{ctx.world_size} ranks on {ctx.device.type}")
+    rank = 0 if ctx is None else ctx.rank
+    logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING,
                         format="%(asctime)s %(levelname)s %(message)s")
     checkpoint_path = checkpoint_path or os.path.join(
         ROOT, f"{args.model}_torch.ckpt")
-    device = args.device
+    device = args.device if ctx is None else ctx.device
 
     np.random.seed(args.seed)
     model_config, data_config = get_default_config(args.model, "synthetic")
@@ -214,6 +246,7 @@ def main(argv=None, checkpoint_path: Optional[str] = None) -> dict:
                                         dim_edge, seed=args.seed,
                                         device=device)
     batch_size = model_config["batch_size"]
+    batch_size -= batch_size % args.num_devices
     lr = args.lr * math.sqrt(args.num_devices)
     trainer = Trainer(model, lr=lr, device=device, **trainer_kwargs)
     # with --features-on-host the tables never reach the card
@@ -223,6 +256,9 @@ def main(argv=None, checkpoint_path: Optional[str] = None) -> dict:
     dg = dgraph.device_graph("cpu" if dgraph.placement == "host"
                              else device)
     state = trainer.init_state(num_nodes, seed=args.seed)
+    if ctx is not None:
+        shard_trainer(trainer)
+        logging.info("data-parallel over %d ranks", ctx.world_size)
 
     cache = None
     if args.cache:
@@ -324,7 +360,7 @@ def main(argv=None, checkpoint_path: Optional[str] = None) -> dict:
             if it % args.print_freq == 0:
                 logging.info("epoch %d it %d loss %.4f", epoch, it,
                              float(loss))
-        if str(device).startswith("cuda"):
+        if torch.device(device).type == "cuda":
             torch.cuda.synchronize()
         epoch_time = time.time() - epoch_start
         logging.info("epoch %d phases: %s", epoch, timer.format())
@@ -356,15 +392,18 @@ def main(argv=None, checkpoint_path: Optional[str] = None) -> dict:
             out["cache_edge_hit"].append(cache.cache_edge_ratio)
         if ap > best_ap:
             best_ap, best_e = ap, epoch
-            save_checkpoint(checkpoint_path, model.state_dict(),
-                            memory_lib.backup_memory(state.memory)
-                            if state.memory is not None else None,
-                            {"epoch": epoch, "ap": ap})
+            if rank == 0:
+                save_checkpoint(checkpoint_path, model.state_dict(),
+                                memory_lib.backup_memory(state.memory)
+                                if state.memory is not None else None,
+                                {"epoch": epoch, "ap": ap})
         if early_stopper.early_stop_check(ap):
             logging.info("early stop at epoch %d (best %d)", epoch, best_e)
             break
 
     logging.info("loading best checkpoint (epoch %d)...", best_e)
+    if ctx is not None:
+        dist.barrier()                 # rank 0 has written it
     ckpt = load_checkpoint(checkpoint_path)
     model.load_state_dict(ckpt["params"])
     model.cast_weights()

@@ -101,6 +101,7 @@ class TrainState:
     step: int = 0
     dedup_n_uniq: Optional[int] = None
     tier_takes: Optional[List[int]] = None
+    last_take: Optional[int] = None
     layer_dedup_n_uniq: Optional[List[int]] = None
     layer_dedup_compact: int = 0
     block_compact: int = 0
@@ -113,21 +114,34 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor):
 
 
 def link_pred_loss(pos: torch.Tensor, neg: torch.Tensor,
-                   valid: torch.Tensor) -> torch.Tensor:
-    """Masked ``mean(BCE(pos, 1)) + mean(BCE(neg, 0))`` over valid rows."""
+                   valid: torch.Tensor,
+                   num_valid: Optional[int] = None) -> torch.Tensor:
+    """Masked ``mean(BCE(pos, 1)) + mean(BCE(neg, 0))`` over valid rows;
+    ``num_valid`` (a data-parallel rank's share of a global batch) divides
+    the masked sums by the global batch's valid count instead."""
     w = valid.float()[:, None]
-    denom = w.sum().clamp_min(1.0)
+    denom = w.sum().clamp_min(1.0) if num_valid is None \
+        else w.new_tensor(float(max(num_valid, 1)))
     return (bce_with_logits(pos, torch.ones_like(pos)) * w).sum() / denom \
         + (bce_with_logits(neg, torch.zeros_like(neg)) * w).sum() / denom
 
 
-def _gather_rows(table: Optional[torch.Tensor], ids: torch.Tensor,
-                 valid: torch.Tensor) -> Optional[torch.Tensor]:
-    """Row gather with padded-id masking (invalid rows are zero)."""
+def _gather_rows(table, ids: torch.Tensor, valid: torch.Tensor,
+                 dtype: Optional[torch.dtype] = None
+                 ) -> Optional[torch.Tensor]:
+    """Row gather with padded-id masking (invalid rows are zero), cast to
+    ``dtype`` where given.  ``table`` is a tensor or a sharded table with
+    ``pull`` (:class:`~gnnflow_tpu_torch.parallel.kvstore.ShardedTable`,
+    a collective)."""
     if table is None:
         return None
-    flat = ids.reshape(-1).clamp(0, table.shape[0] - 1)
-    rows = table[flat].reshape(ids.shape + (table.shape[1],))
+    if hasattr(table, "pull"):
+        rows = table.pull(ids.reshape(-1))
+    else:
+        rows = table[ids.reshape(-1).clamp(0, table.shape[0] - 1)]
+    if dtype is not None:
+        rows = rows.to(dtype)
+    rows = rows.reshape(ids.shape + (rows.shape[1],))
     return torch.where(valid[..., None], rows, 0.0)
 
 
@@ -142,12 +156,11 @@ def fetch_node_features(mfgs: List[List[MFG]],
                         node_feats: Optional[torch.Tensor],
                         dtype: torch.dtype = torch.float32):
     """Per-snapshot [B·(1+F), dim_node] node features of the innermost
-    MFGs' instances, invalid rows zero (``train.py:124-128``), gathered
-    from the table cast to ``dtype``; None without a table."""
+    MFGs' instances, invalid rows zero (``train.py:124-128``), cast to
+    ``dtype``; None without a table."""
     if node_feats is None:
         return None
-    table = node_feats.to(dtype)
-    return [_gather_rows(table, m.all_nodes(), m.all_mask())
+    return [_gather_rows(node_feats, m.all_nodes(), m.all_mask(), dtype)
             for m in mfgs[0]]
 
 
@@ -334,6 +347,8 @@ class Trainer:
                              "layers without memory (TGAT), with one "
                              "snapshot or windowed ones (DySAT), or a static "
                              "SAGE or GAT of two or more layers")
+        # the data-parallel collectives (parallel/dp.py), None on one device
+        self.dp = None
         self._calibrated = not (
             (windowed and (self._auto["compact"]
                            or self._auto["layer_dedup"]))
@@ -562,8 +577,10 @@ class Trainer:
         step drops that gather as dead code.
         The path is the first that is set of the snapshot dedup, the block
         compaction, the layer dedup and the padded path
-        (``train.py:1209-1236``).  A train batch on either dedup counts
-        its take in ``state.tier_takes``."""
+        (``train.py:1209-1236``).  The layer or snapshot dedup's take is
+        kept in ``state.last_take``, and a train batch counts it in
+        ``state.tier_takes`` (a data-parallel step counts the worst
+        rank's, after its all-reduce)."""
         dev = self.device
         target_nodes = torch.from_numpy(batch.target_nodes).to(dev)
         ts = torch.from_numpy(batch.ts).to(dev)
@@ -586,7 +603,8 @@ class Trainer:
                                                         target_nodes, ts)
         else:
             mfgs = self._sample(state.sample_gen, dg, target_nodes, ts)
-        if train and take is not None:
+        state.last_take = take
+        if train and take is not None and self.dp is None:
             state.tier_takes[take] += 1
         if expansions is not None and all(e is None for e in expansions):
             expansions = None
@@ -611,6 +629,8 @@ class Trainer:
                     valid) -> None:
         if last is None:                   # a model without memory
             return
+        if self.dp is not None:
+            last, eids, valid = self.dp.gather_write_back(last, eids, valid)
         # target-edge features for the mails
         tef = _gather_rows(edge_feats, eids, valid)
         memory_lib.update_mem_mail(
@@ -634,20 +654,35 @@ class Trainer:
         Returns ``(state, loss, pos_logits [B], neg_logits [B])``,
         detached."""
         self._maybe_auto_calibrate(dg, batch.target_nodes, batch.ts)
+        part = batch if self.dp is None else self.dp.local_batch(batch)
         mfgs, efs, mem_input, eids, valid, expansions = self._inputs(
-            state, dg, edge_feats, batch, train=True, node_feats=node_feats)
+            state, dg, edge_feats, part, train=True, node_feats=node_feats)
         nfs = self._node_inputs(mfgs, mem_input, node_feats, True)
         pos, neg, last = self.model(mfgs, efs, mem_input, train=True,
                                     generator=state.dropout_gen,
                                     expansions=expansions, node_feats=nfs)
-        loss = link_pred_loss(pos, neg, valid)
+        loss = link_pred_loss(pos, neg, valid,
+                              None if self.dp is None else batch.num_valid)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.dp is not None:
+            loss, take = self.dp.reduce_step(self.model.parameters(), loss,
+                                             state.last_take)
+            if take is not None:
+                state.tier_takes[take] += 1
         state.optimizer.step()
         self.model.cast_weights()
         self._write_back(state, last, edge_feats, eids, valid)
         state.step += 1
-        return state, loss.detach(), pos[:, 0].detach(), neg[:, 0].detach()
+        return (state, loss.detach()) + self._logits(pos, neg)
+
+    def _logits(self, pos: torch.Tensor, neg: torch.Tensor):
+        """``(pos [B], neg [B])`` of the whole batch, detached: gathered
+        over the ranks of a data-parallel step."""
+        pos, neg = pos[:, 0].detach(), neg[:, 0].detach()
+        if self.dp is not None:
+            pos, neg = self.dp.gather(pos), self.dp.gather(neg)
+        return pos, neg
 
     def train_step_prefetched(self, state: TrainState, mfgs, nfs, efs, tef,
                               batch: Batch, train: bool = True):
@@ -717,14 +752,18 @@ class Trainer:
         place.
 
         Returns ``(state, loss, pos_logits [B], neg_logits [B])``."""
+        part = batch if self.dp is None else self.dp.local_batch(batch)
         mfgs, efs, mem_input, eids, valid, expansions = self._inputs(
-            state, dg, edge_feats, batch, node_feats=node_feats)
+            state, dg, edge_feats, part, node_feats=node_feats)
         nfs = self._node_inputs(mfgs, mem_input, node_feats, False)
         pos, neg, last = self.model(mfgs, efs, mem_input,
                                     expansions=expansions, node_feats=nfs)
-        loss = link_pred_loss(pos, neg, valid)
+        loss = link_pred_loss(pos, neg, valid,
+                              None if self.dp is None else batch.num_valid)
+        if self.dp is not None:
+            loss = self.dp.reduce_loss(loss)
         self._write_back(state, last, edge_feats, eids, valid)
-        return state, loss, pos[:, 0], neg[:, 0]
+        return (state, loss) + self._logits(pos, neg)
 
     @torch.no_grad()
     def embed_step(self, state: TrainState, dg: DeviceGraph,
@@ -822,7 +861,7 @@ class Trainer:
         boundary, worst at deeper boundaries; 0.0 without any), each the
         largest over the snapshots, else None.  The probe samples where
         the store's view lies (the CPU for a store placed on the host)."""
-        dev = dg.row_off.device
+        dev = dg.device
         gen = torch.Generator(device=dev).manual_seed(0)
         ts = np.asarray(ts, np.float32)
         if self.is_static:               # every probe, shifted or not
@@ -850,7 +889,7 @@ class Trainer:
         if self._calibrated:
             return
         ts_arr = np.asarray(ts, np.float32)
-        t_hi = float(dg.e_ts.max())
+        t_hi = dg.max_ts()
         t_b = float(ts_arr.max())
         probes = [(roots, ts_arr + np.float32(q * t_hi - t_b))
                   for q in (0.33, 0.67, 1.0)]

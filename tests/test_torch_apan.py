@@ -51,6 +51,7 @@ from gnnflow_tpu_torch.ops.dedup import dedup_instances
 from gnnflow_tpu_torch.train import Trainer, dedup_factor_for
 from tests.test_torch_kernels import one_cpu_thread  # noqa: F401
 from tests.test_torch_slice import _stream, interpret_attention  # noqa: F401
+from tests.test_torch_slice import jax_state
 from tests.test_torch_train import _batches, _flat
 
 S = 3
@@ -273,11 +274,9 @@ def _jax_trainer(full, ef, cfg, **knobs):
     model = JDGNN(**cfg, gru_impl="pallas", attention_impl="pallas")
     trainer = JTrainer(model, fanouts=[5], sample_strategy="recent",
                        gru_table=False, **knobs)
-    dg = g.device_graph()
-    state = trainer.init_state(jax.random.PRNGKey(0), dg, 64, None,
-                               jnp.asarray(ef),
-                               num_nodes=g.max_vertex_id() + 1)
-    return trainer, state, dg
+    state = jax_state(trainer, DGNN(**cfg, device="cpu"),
+                      g.max_vertex_id() + 1)
+    return trainer, state, g.device_graph()
 
 
 def _port_trainer(full, params, cfg, **knobs):

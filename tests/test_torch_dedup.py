@@ -43,6 +43,7 @@ from gnnflow_tpu_torch.ops.segment_sum import (expand_compact,
 from gnnflow_tpu_torch.train import Trainer, link_pred_loss
 from tests.test_torch_kernels import one_cpu_thread  # noqa: F401
 from tests.test_torch_slice import B, _stream, interpret_attention  # noqa: F401
+from tests.test_torch_slice import jax_state
 from tests.test_torch_train import CFG, _assert_memory_equal, _batches, _flat
 
 
@@ -172,11 +173,9 @@ def _jax_dedup_side(full, ef):
     model = JDGNN(**CFG, gru_impl="pallas", attention_impl="pallas")
     trainer = JTrainer(model, fanouts=[4], sample_strategy="recent",
                        dedup_factor=0.5, gru_table=False)
-    dg = g.device_graph()
-    state = trainer.init_state(jax.random.PRNGKey(0), dg, B, None,
-                               jnp.asarray(ef),
-                               num_nodes=g.max_vertex_id() + 1)
-    return trainer, state, dg
+    state = jax_state(trainer, DGNN(**CFG, device="cpu"),
+                      g.max_vertex_id() + 1)
+    return trainer, state, g.device_graph()
 
 
 def _port_trainer(full, params, dedup_factor, cfg=CFG, fanout=4, lr=1e-4):

@@ -59,6 +59,7 @@ from tests.test_torch_kernels import one_cpu_thread  # noqa: F401
 from tests.test_torch_sampling import _roots, graphs  # noqa: F401
 from tests.test_torch_tgat import (_assert_mfgs_identical, _jax_graph,
                                    _port_graph, _stream)
+from tests.test_torch_slice import jax_state
 from tests.test_torch_train import _flat
 
 CFG = dict(dim_node=0, dim_edge=12, dim_time=0, dim_embed=32, num_layers=2,
@@ -84,8 +85,8 @@ def jax_run():
                        layer_dedup=None, **WIN)
     assert trainer._calibrated            # nothing left to calibrate
     jef = jnp.asarray(ef)
-    state = trainer.init_state(jax.random.PRNGKey(0), jdg, B, None, jef,
-                               num_nodes=jg.max_vertex_id() + 1)
+    state = jax_state(trainer, DGNN(**CFG, device="cpu"),
+                      jg.max_vertex_id() + 1)
     params0 = jax.tree.map(np.asarray, state.params)
     state0 = jax.tree.map(jnp.array, state)
     losses, params = [], []

@@ -168,8 +168,8 @@ def test_build_model_apan():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--num-devices", "2"], ["--memory-storage", "bfloat16"],
-    ["--remat-attention"], ["--use-scan"]])
+    ["--memory-storage", "bfloat16"], ["--remat-attention"],
+    ["--use-scan"]])
 def test_entry_refuses_unported_flags(flags, capsys):
     with pytest.raises(SystemExit):
         entry.main(["--model", "TGN", "--data", "SYNTHETIC", *flags])
@@ -247,16 +247,17 @@ def test_entry_trains_static_models_on_cpu(tmp_path, caplog, model):
 
 
 def test_entry_trains_tgn_with_node_features_on_cpu(tmp_path):
-    """``--model TGN`` on a dataset on disk with node features: the model
-    takes them through ``node_feat_proj`` (8 wide into memory of 100)."""
+    """``--model TGN`` on a dataset on disk with node features, one epoch:
+    the model takes them through ``node_feat_proj`` (8 wide into memory
+    of 100)."""
     jdata.write_synthetic_dataset(str(tmp_path / "REDDIT"), num_src=100,
                                   num_dst=30, num_edges=2000, dim_node=8,
                                   dim_edge=16, seed=3)
     path = str(tmp_path / "TGN_torch.ckpt")
     out = entry.main(["--model", "TGN", "--data", "REDDIT", "--data-dir",
-                      str(tmp_path), "--epoch", "2", "--device", "cpu"],
+                      str(tmp_path), "--epoch", "1", "--device", "cpu"],
                      checkpoint_path=path)
-    assert len(out["val_ap"]) == 2
+    assert len(out["val_ap"]) == 1
     for v in out["val_ap"] + [out["test_ap"]]:
         assert 0.0 < v <= 1.0
     params = load_checkpoint(path)["params"]

@@ -69,6 +69,7 @@ from gnnflow_tpu_torch.train import (STATIC_SAMPLE_TS, Trainer,
 from tests.test_torch_apan import _filled_memory, _jax_memory, _mfgs
 from tests.test_torch_kernels import one_cpu_thread  # noqa: F401
 from tests.test_torch_tgat import _assert_mfgs_identical
+from tests.test_torch_slice import jax_state
 from tests.test_torch_train import _flat
 
 DIM_NODE, EMBED, FANOUTS, B, STEPS = 16, 16, (4, 3), 64, 4
@@ -267,13 +268,12 @@ def jax_runs():
     _, jg = _graphs(full)
     out = {}
     for name in STATIC:
-        jtrainer = JTrainer(_models(name)[1], fanouts=list(FANOUTS),
+        model, jmodel = _models(name)
+        jtrainer = JTrainer(jmodel, fanouts=list(FANOUTS),
                             sample_strategy="recent", lr=1e-4,
                             is_static=True, layer_dedup=None)
         jdg = jg.device_graph()
-        state = jtrainer.init_state(jax.random.PRNGKey(0), jdg, B,
-                                    jnp.asarray(nf), jnp.asarray(ef),
-                                    num_nodes=jg.max_vertex_id() + 1)
+        state = jax_state(jtrainer, model, jg.max_vertex_id() + 1)
         run = dict(params0=jax.tree.map(np.asarray, state.params),
                    state0=jax.tree.map(jnp.array, state),
                    losses=[], params=[])

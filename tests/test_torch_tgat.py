@@ -56,6 +56,7 @@ from gnnflow_tpu_torch.train import (Trainer, fetch_features,
 from gnnflow_tpu_torch.utils.checkpoint import load_checkpoint
 from tests.test_torch_kernels import one_cpu_thread  # noqa: F401
 from tests.test_torch_sampling import FIELDS, _roots, graphs  # noqa: F401
+from tests.test_torch_slice import jax_state
 from tests.test_torch_train import _flat
 
 CFG = dict(dim_node=0, dim_edge=12, dim_time=16, dim_embed=32, num_layers=2,
@@ -105,8 +106,8 @@ def jax_run():
     trainer = JTrainer(model, fanouts=list(FANOUTS),
                        sample_strategy="recent", lr=1e-4, layer_dedup=None)
     jef = jnp.asarray(ef)
-    state = trainer.init_state(jax.random.PRNGKey(0), jdg, B, None, jef,
-                               num_nodes=jg.max_vertex_id() + 1)
+    state = jax_state(trainer, DGNN(**CFG, device="cpu"),
+                      jg.max_vertex_id() + 1)
     params0 = jax.tree.map(np.asarray, state.params)
     state0 = jax.tree.map(jnp.array, state)
     losses, params = [], []

@@ -88,7 +88,8 @@ def test_first_step_gradients_match_jax(interpret_attention):
     JAX trainer's ``_run_model(train=True)``, after two eval batches have
     filled the memory."""
     _, _, _, full, _, ef = _stream()
-    jtrainer, jstate, jdg = _jax_side(full, ef, CFG)
+    jtrainer, jstate, jdg = _jax_side(full, ef, CFG,
+                                      DGNN(**CFG, device="cpu"))
     jef = jnp.asarray(ef)
     trainer, state, dg = _port_side(full, jax.tree.map(np.asarray,
                                                        jstate.params))
@@ -131,7 +132,8 @@ def test_tgn_train_matches_jax(interpret_attention):
     """Four train steps (the last batch padded): losses, logits, parameters
     by Flax name, memory and mailbox after every step."""
     _, _, _, full, _, ef = _stream()
-    jtrainer, jstate, jdg = _jax_side(full, ef, CFG)
+    jtrainer, jstate, jdg = _jax_side(full, ef, CFG,
+                                      DGNN(**CFG, device="cpu"))
     jef = jnp.asarray(ef)
     trainer, state, dg = _port_side(full, jax.tree.map(np.asarray,
                                                        jstate.params))
