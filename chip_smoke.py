@@ -37,20 +37,21 @@ Phases (each prints one line; any failure raises and exits non-zero):
 7. entry: two epochs of the port's offline training script
    (``gnnflow_tpu_torch.scripts.offline_edge_prediction``) on its
    synthetic stream, with validation and test AP.
-8. slice vs itself: the same batches of a small stream on the CPU (plain
-   versions) and on the card (kernels), same weights: eval logits and
-   memory, then train steps at dropout 0 (losses, gradients, parameters
-   and memory after each step), in f32 and bf16.  In bf16 the card takes
-   the CPU's state before each step, so every step is held from one
-   state; a free-running card run and a CPU run started from the card's
-   first step are reported beside it.  In f32 the dedup's train steps run
-   on both sides too, and the card's dedup run is held against its
-   per-instance run.  TGAT in f32 as well (the widths of phase 9, dropout
-   0, the same uniform draws on both sides): eval logits, then train
-   steps on a two-tier layer-dedup ladder; and DySAT the same way (the
-   widths of phase 10), train steps on a two-tier snapshot-dedup ladder;
-   and the serving path of phase 13 in f32 (an ``embed_step`` and a
-   prequential sequence).
+8. slice vs itself (run after phase 17, while phase 18's harness runs
+   beside it: it times nothing): the same batches of a small stream on
+   the CPU (plain versions) and on the card (kernels), same weights: eval
+   logits and memory, then train steps at dropout 0 (losses, gradients,
+   parameters and memory after each step), in f32 and bf16.  In bf16
+   the card takes the CPU's state before each step, so every step is
+   held from one state; a free-running card run and a CPU run started
+   from the card's first step are reported beside it.  In f32 the
+   dedup's train steps run on both sides too, and the card's dedup run is
+   held against its per-instance run.  TGAT in f32 as well (the widths
+   of phase 9, dropout 0, the same uniform draws on both sides): eval
+   logits, then train steps on a two-tier layer-dedup ladder; and DySAT
+   the same way (the widths of phase 10), train steps on a two-tier
+   snapshot-dedup ladder; and the serving path of phase 13 in f32 (an
+   ``embed_step`` and a prequential sequence).
 9. tgat: TGAT as ``bench.py:127-160`` runs it (REDDIT defaults through
    ``build_model``: 2 layers, fanouts [10, 10], uniform sampling, no
    memory, dropout and attention dropout 0.1, bf16 compute, 172-dim edge
@@ -138,13 +139,28 @@ Phases (each prints one line; any failure raises and exits non-zero):
    and the routed load's CV; the same TGN paths and f32 check through
    ``PartitionedTrainer`` (routed); TGAT eval and 5 train steps at
    attention dropout 0 on the layer dedup at 0.5 through routed sampling
-   (K3, K4); one epoch of the partitioned script at ``--num-devices 1
-   --num-partitions 4``, joining the group.  Lines ``[parallel]`` with
-   ``path`` dp, store, partitioned, tgat and script: ms per step and per
-   eval batch (CUDA events, median) beside the plain trainer's, host ms,
-   the f32 errors, the store's dispatch seconds and partition sizes, the
-   layer sampling ms, the load CV, the script's APs.  K1, K2, K3 and K4
-   must each launch on these paths.
+   (K3, K4); TGN through ``PartitionedTrainer`` on memory sharded by
+   ``shard_memory_state`` beside replicated memory (20 train steps, 10
+   eval batches), and 3 f32 steps of each equal exactly, per instance and
+   on the memory dedup at 0.35 over the 128-dim node table in a
+   ``ShardedTable`` (K4); the LRU cache at 0.3 over a ``ShardedTable``
+   master of the 462.6 MB edge table against the host-master cache (the
+   same features and hit ratios over 5 batches; 20 cached train steps of
+   each); one epoch of the partitioned script at ``--num-devices 1
+   --num-partitions 4`` and a ``--max-steps``-cut one of the multiprocess
+   script with ``--cache``, each joining the group.  Lines ``[parallel]``
+   with ``path`` dp, store, partitioned, memory, cache, tgat and script:
+   ms per step and per eval batch (CUDA events, median) beside the plain
+   trainer's, host ms, the f32 errors, the store's dispatch seconds and
+   partition sizes, the layer sampling ms, the load CV, the scripts'
+   APs.  K1, K2, K3 and K4 must each launch on these paths.
+17. storage: TGN with bf16 memory storage beside f32 storage
+   (``phase_storage``'s docstring): ms/step, the memory's bytes, peak
+   memory, and 3 f32-compute steps within ``STORAGE_TOL``.
+18. parity: the port's parity harness, ``parity_run --smoke
+   --smoke-models TGN`` with its two host cells, started as a subprocess
+   before phase 8 (each cell a subprocess of the training script on the
+   card), then without data: the verdicts and each cell's AP.
 
 Then one JSON line with every kernel's numbers and, last, the result line
 ``{"ok": true, "device": {...}}``.
@@ -3772,13 +3788,6 @@ def phase_parallel(torch, kernels, stream):
     eb = _take(full[len(train):], B, full.dst, ev_runs)
     launches, result = {}, {}
 
-    def counts():
-        return {name: fn.launches for name, fn in kernels.items()}
-
-    def expect(k1=0, k2=0, k3=0, k4=0):
-        return {"gru_memory_fused": k1, "gru_memory_fused_bwd": k2,
-                "neighborhood_attention": k3, "sorted_segment_sum": k4}
-
     def tgn_trainer(cls, **kw):
         model = DGNN(dim_edge=172, compute_dtype="bfloat16", seed=0,
                      device="cuda", **TGN)
@@ -3796,18 +3805,18 @@ def phase_parallel(torch, kernels, stream):
         outs, ms, host = _timed_steps(
             torch, lambda b: trainer.train_step(state, dg_, table, b)[1],
             tb[warm:])
-        launches[f"parallel_{name}_train"] = counts()
+        launches[f"parallel_{name}_train"] = _launch_counts(kernels)
         _check_launches(launches[f"parallel_{name}_train"],
-                        expect(k1=steps, k2=steps), f"{steps} {name} steps")
+                        _expect(k1=steps, k2=steps), f"{steps} {name} steps")
         _, plain_ms, plain_host = _timed_steps(
             torch, lambda b: plain.train_step(pstate, dg, ef, b)[1],
             tb[warm:])
         _reset(kernels)
         evs, ev_ms, ev_host = _timed_steps(
             torch, lambda b: trainer.eval_step(state, dg_, table, b), eb)
-        launches[f"parallel_{name}_eval"] = counts()
+        launches[f"parallel_{name}_eval"] = _launch_counts(kernels)
         _check_launches(launches[f"parallel_{name}_eval"],
-                        expect(k1=ev_runs, k3=ev_runs),
+                        _expect(k1=ev_runs, k3=ev_runs),
                         f"{ev_runs} {name} eval batches")
         _, plain_ev_ms, _ = _timed_steps(
             torch, lambda b: plain.eval_step(pstate, dg, ef, b), eb)
@@ -3921,6 +3930,14 @@ def phase_parallel(torch, kernels, stream):
         _log("parallel", path="partitioned", **result["partitioned"])
         del part, ptstate, plain, pstate
 
+        # ---- memory sharded over the group, and the cache over sharded
+        # masters --------------------------------------------------------
+        result["memory"] = _sharded_memory(torch, kernels, stream, pdg,
+                                           store, tb, eb, launches)
+        _log("parallel", path="memory", **result["memory"])
+        result["cache"] = _sharded_cache(torch, kernels, stream, launches)
+        _log("parallel", path="cache", **result["cache"])
+
         # ---- TGAT on the layer dedup through routed sampling ----------
         model, tgat = _tgat(att_dropout=0.0, layer_dedup=0.5,
                             cls=PartitionedTrainer)
@@ -3929,8 +3946,9 @@ def phase_parallel(torch, kernels, stream):
         _, tev_ms, _ = _timed_steps(
             torch, lambda b: tgat.eval_step(tstate, pdg, store.edge_table,
                                             b), eb)
-        launches["parallel_tgat_eval"] = counts()
-        _check_launches(launches["parallel_tgat_eval"], expect(k3=2 * ev_runs),
+        launches["parallel_tgat_eval"] = _launch_counts(kernels)
+        _check_launches(launches["parallel_tgat_eval"],
+                        _expect(k3=2 * ev_runs),
                         f"{ev_runs} TGAT eval batches, partitioned")
         _reset(kernels)
 
@@ -3939,10 +3957,10 @@ def phase_parallel(torch, kernels, stream):
             return loss, tstate.layer_dedup_compact
 
         touts, tms, thost = _timed_steps(torch, tgat_step, tb[:extra])
-        launches["parallel_tgat_train"] = counts()
+        launches["parallel_tgat_train"] = _launch_counts(kernels)
         compact = [o[1] for o in touts]
         _check_launches(launches["parallel_tgat_train"],
-                        expect(k3=2 * extra, k4=sum(compact)),
+                        _expect(k3=2 * extra, k4=sum(compact)),
                         f"{extra} TGAT train steps, partitioned")
         tl = torch.stack([o[0] for o in touts]).float().cpu()
         if not bool(torch.isfinite(tl).all()) or sum(compact) < 1:
@@ -3963,7 +3981,7 @@ def phase_parallel(torch, kernels, stream):
                                  "--num-devices", "1", "--num-partitions",
                                  str(PARALLEL_PARTITIONS)])
         torch.cuda.synchronize()
-        launches["parallel_script"] = counts()
+        launches["parallel_script"] = _launch_counts(kernels)
         sl = launches["parallel_script"]
         if not (sout["val_ap"] and 0.0 < sout["val_ap"][0] <= 1.0
                 and sl["gru_memory_fused"] and sl["gru_memory_fused_bwd"]
@@ -3982,6 +4000,369 @@ def phase_parallel(torch, kernels, stream):
         raise AssertionError(f"a kernel never launched on the parallel "
                              f"paths: {every}")
     return dict(launches=launches, **result)
+
+
+def _launch_counts(kernels):
+    return {name: fn.launches for name, fn in kernels.items()}
+
+
+def _expect(k1=0, k2=0, k3=0, k4=0):
+    return {"gru_memory_fused": k1, "gru_memory_fused_bwd": k2,
+            "neighborhood_attention": k3, "sorted_segment_sum": k4}
+
+
+def _sharded_memory(torch, kernels, stream, pdg, store, tb, eb, launches):
+    """``[parallel] memory`` (phase 16): TGN at the REDDIT defaults (bf16,
+    batch 4000, fanout 10, memory 100) through ``PartitionedTrainer`` on
+    memory passed through ``shard_memory_state`` (one block at world size
+    1: every pull is a routed exchange over NCCL), beside the same trainer
+    on replicated memory: train steps and eval batches, ms and host ms.
+    Then 3 f32 steps at dropout 0 of each from one set of weights, equal
+    exactly (loss after each step; parameters and memory), per instance
+    and on the memory dedup at 0.35 over the stream's 128-dim node table
+    sharded in a ``ShardedTable`` (K4 once a step that fits)."""
+    from gnnflow_tpu_torch.models.dgnn import DGNN
+    from gnnflow_tpu_torch.parallel import (PartitionedTrainer, ShardedTable,
+                                            shard_memory_state,
+                                            unshard_memory)
+    num_nodes = stream["g"].max_vertex_id() + 1
+    warm = 3
+    steps, ev_runs = len(tb) - warm, len(eb)
+    table = store.edge_table
+
+    def make(sharded, cfg, compute_dtype, dedup=None):
+        model = DGNN(dim_edge=172, compute_dtype=compute_dtype, seed=0,
+                     device="cuda", **cfg)
+        trainer = PartitionedTrainer(model, fanouts=[10], lr=1e-4,
+                                     dedup_factor=dedup, device="cuda")
+        state = trainer.init_state(num_nodes, seed=0)
+        if sharded:
+            state.memory = shard_memory_state(state.memory, trainer.dp.group)
+        return model, trainer, state
+
+    out = {}
+    for name, sharded in (("replicated", False), ("sharded", True)):
+        model, trainer, state = make(sharded, TGN, "bfloat16")
+        for b in tb[:warm]:
+            trainer.train_step(state, pdg, table, b)
+        torch.cuda.synchronize()
+        _reset(kernels)
+        outs, ms, host = _timed_steps(
+            torch, lambda b: trainer.train_step(state, pdg, table, b)[1],
+            tb[warm:])
+        tl = _launch_counts(kernels)
+        _reset(kernels)
+        evs, ev_ms, ev_host = _timed_steps(
+            torch, lambda b: trainer.eval_step(state, pdg, table, b)[1], eb)
+        el = _launch_counts(kernels)
+        _check_launches(tl, _expect(k1=steps, k2=steps),
+                        f"{steps} {name}-memory train steps")
+        _check_launches(el, _expect(k1=ev_runs, k3=ev_runs),
+                        f"{ev_runs} {name}-memory eval batches")
+        launches[f"parallel_memory_{name}_train"] = tl
+        launches[f"parallel_memory_{name}_eval"] = el
+        losses = torch.stack(outs + evs).float().cpu()
+        if not (bool(torch.isfinite(losses).all())
+                and _all_finite(torch, state, model)):
+            raise AssertionError(f"{name} memory: non-finite values")
+        out[name] = dict(ms_per_step=statistics.median(ms),
+                         host_ms_per_step=statistics.median(host),
+                         eval_ms_per_batch=statistics.median(ev_ms),
+                         eval_host_ms_per_batch=statistics.median(ev_host),
+                         mean_loss=float(losses[:steps].mean()),
+                         memory_bytes=state.memory.nbytes,
+                         local_rows=state.memory.node_memory.shape[0])
+        del model, trainer, state
+
+    nt = ShardedTable(stream["nf"].cpu().numpy(), device="cuda")
+    f32 = dict(TGN, dropout=0.0, att_dropout=0.0)
+    for name, cfg, dedup, nfeat in (
+            ("f32_exact", f32, None, None),
+            ("f32_exact_dedup", dict(f32, dim_node=128), 0.35, nt)):
+        (rm, rt, rs), (sm, st, ss) = (make(s, cfg, None, dedup)
+                                      for s in (False, True))
+        same, fast, counted = [], 0, {k: 0 for k in kernels}
+        for b in tb[warm:warm + 3]:
+            want = rt.train_step(rs, pdg, table, b, node_feats=nfeat)[1]
+            _reset(kernels)
+            got = st.train_step(ss, pdg, table, b, node_feats=nfeat)[1]
+            for k, v in _launch_counts(kernels).items():
+                counted[k] += v
+            fast += _fast_steps(st, ss, 4000 * 3 * 11) if dedup else 0
+            same.append(bool(torch.equal(got, want)))
+        full = unshard_memory(ss.memory)
+        params = all(torch.equal(a, w) for a, w in zip(sm.parameters(),
+                                                       rm.parameters()))
+        memory = all(torch.equal(getattr(full, k), getattr(rs.memory, k))
+                     for k in ("node_memory", "node_memory_ts", "mailbox",
+                               "mailbox_ts"))
+        res = dict(steps=3, losses_equal=same, params_equal=params,
+                   memory_equal=memory, fast_steps=fast, launches=counted)
+        out[name] = res
+        launches[f"parallel_memory_{name}"] = counted
+        if not (all(same) and params and memory):
+            raise AssertionError(f"sharded memory {name}: {res}")
+        if dedup and not (fast and counted["sorted_segment_sum"] == fast):
+            raise AssertionError(f"sharded memory {name}: K4 launched "
+                                 f"{counted['sorted_segment_sum']} times "
+                                 f"in {fast} steps on the dedup")
+        del rm, rt, rs, sm, st, ss, full
+    return out
+
+
+def _sharded_cache(torch, kernels, stream, launches):
+    """``[parallel] cache`` (phase 16): LRU at 0.3 over a ``ShardedTable``
+    master holding the REDDIT-shaped stream's 172-dim edge table (one
+    block on the card at world size 1; misses are routed pulls) against
+    the host-master cache: features, target-edge features and hit ratios
+    equal bit for bit over 5 batches from the middle of the train split;
+    then 20 bf16 TGN train steps through each cache, timed; then one
+    ``--max-steps``-cut epoch of the multiprocess script with ``--cache``,
+    joining the group."""
+    from gnnflow_tpu_torch.cache import LRUCache
+    from gnnflow_tpu_torch.parallel import ShardedTable
+    from gnnflow_tpu_torch.scripts import \
+        offline_edge_prediction_multiprocess as mp_script
+    from gnnflow_tpu_torch.temporal_sampler import TemporalSampler
+    g, train, full = stream["g"], stream["train"], stream["full"]
+    num_nodes = g.max_vertex_id() + 1
+    ef_np = stream["ef"].cpu().numpy()
+    t0 = time.perf_counter()
+    master = ShardedTable(ef_np, device="cuda")
+    torch.cuda.synchronize()
+    res = dict(table_mb=ef_np.nbytes / 1e6,
+               master_upload_s=time.perf_counter() - t0, ratio=CACHE_RATIO)
+    sampler = TemporalSampler(g, [10])
+    warm, steps, checked = 3, 20, 5
+    batches = _take(train[len(train) // 2:], CACHE_BATCH, train.dst,
+                    warm + steps)
+
+    def cache_over(table):
+        c = LRUCache(CACHE_RATIO, 0, num_nodes, len(full), None, table)
+        c.init_cache()
+        return c
+
+    dist, host = cache_over(master), cache_over(ef_np)
+    bad = []
+    for i, b in enumerate(batches[:checked]):
+        mfgs = sampler.sample(b.target_nodes, b.ts)
+        _, defs = dist.fetch_feature(mfgs, b.eids)
+        _, hefs = host.fetch_feature(mfgs, b.eids)
+        if not (torch.equal(defs[0][0], hefs[0][0])
+                and torch.equal(dist.target_edge_features,
+                                host.target_edge_features)
+                and dist.cache_edge_ratio == host.cache_edge_ratio):
+            bad.append(i)
+    res.update(batches_equal=checked - len(bad),
+               hit_ratio=dist.cache_edge_ratio,
+               hit_ratio_host=host.cache_edge_ratio)
+    if bad:
+        raise AssertionError(f"sharded-master cache differs from the host "
+                             f"one on batches {bad}")
+    del dist, host
+    for name, table in (("host_master", ef_np), ("sharded_master", master)):
+        model, trainer, state = _tgn_cached(torch, num_nodes, "bfloat16")
+        cache = cache_over(table)
+        _cached_steps(torch, trainer, state, sampler, cache,
+                      batches[:warm])
+        cache.reset()
+        _reset(kernels)
+        losses, ms, host_ms = _cached_steps(torch, trainer, state, sampler,
+                                            cache, batches[warm:])
+        launches[f"parallel_cache_{name}"] = _launch_counts(kernels)
+        _check_launches(launches[f"parallel_cache_{name}"],
+                        _expect(k1=steps, k2=steps),
+                        f"{steps} cached train steps, {name}")
+        if not (bool(torch.isfinite(losses).all())
+                and _all_finite(torch, state, model)):
+            raise AssertionError(f"cached steps over the {name}: "
+                                 f"non-finite values")
+        res[name] = dict(train_ms_per_step=ms, train_host_ms_per_step=host_ms,
+                         hit_ratio=cache.cache_edge_ratio,
+                         mean_loss=float(losses.mean()))
+        del model, trainer, state, cache
+    del master
+    _reset(kernels)
+    t0 = time.perf_counter()
+    out = mp_script.main(["--model", "TGN", "--epoch", "1", "--coordinator",
+                          "unused:0", "--num-processes", "1",
+                          "--process-id", "0", "--cache", "LRUCache",
+                          "--edge-cache-ratio", str(CACHE_RATIO),
+                          "--max-steps", "5"])
+    torch.cuda.synchronize()
+    sl = _launch_counts(kernels)
+    launches["parallel_cache_script"] = sl
+    if not (out["val_ap"] and 0.0 < out["val_ap"][0] <= 1.0
+            and 0.0 < out["cache_edge_hit"][0] <= 1.0
+            and sl["gru_memory_fused"] and sl["gru_memory_fused_bwd"]
+            and sl["neighborhood_attention"]):
+        raise AssertionError(f"multiprocess script with --cache: {out}, "
+                             f"{sl}")
+    res["script"] = dict(seconds=time.perf_counter() - t0, launches=sl,
+                         **out)
+    return res
+
+
+# bf16 storage against f32 storage, f32 compute, free-running from one set
+# of weights: a stored value rounds by at most 2^-8 of max(|x|, 1), and the
+# GRU amplifies what its inputs differ by from one step to the next, by an
+# order of magnitude at the third step at these widths, as JAX's bf16
+# storage parts from its f32 storage (tests/test_torch_distmem.py holds the
+# port's bf16 storage to JAX's): 1/8 holds three steps; the loss to 1e-3
+STORAGE_TOL = dict(loss_rel=1e-3, memory_rel=2 ** -3)
+
+
+def phase_storage(torch, kernels, stream):
+    """Phase 17: TGN with ``memory_storage="bfloat16"`` beside f32
+    storage at the REDDIT defaults (bf16 compute, batch 4000, fanout 10,
+    memory 100, the memory dedup off): 20 train steps each (K1 and K2 once
+    a step), ms/step by CUDA events and host ms, the memory state's bytes
+    and the steps' peak memory; then 3 f32-compute steps at dropout 0 of
+    each storage from one set of weights: the bf16-stored run's loss and
+    memory and mails (each difference over max(|x|, 1)) apart from the
+    f32-stored run's by bf16 rounding only, within ``STORAGE_TOL``."""
+    from gnnflow_tpu_torch.models.dgnn import DGNN
+    from gnnflow_tpu_torch.train import Trainer
+    g, dg, ef, train = stream["g"], stream["dg"], stream["ef"], \
+        stream["train"]
+    num_nodes = g.max_vertex_id() + 1
+    warm, steps = 3, 20
+    tb = _take(train, 4000, train.dst, warm + steps)
+
+    def make(storage, **over):
+        cfg = {**TGN, **over}
+        model = DGNN(dim_edge=172, seed=0, device="cuda", **cfg)
+        trainer = Trainer(model, fanouts=[10], lr=1e-4, dedup_factor=None,
+                          memory_storage=storage, device="cuda")
+        return model, trainer, trainer.init_state(num_nodes, seed=0)
+
+    res, launches = {}, {}
+    for storage in ("float32", "bfloat16"):
+        model, trainer, state = make(storage, compute_dtype="bfloat16")
+        for b in tb[:warm]:
+            trainer.train_step(state, dg, ef, b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _reset(kernels)
+        outs, ms, host = _timed_steps(
+            torch, lambda b: trainer.train_step(state, dg, ef, b)[1],
+            tb[warm:])
+        launches[f"storage_{storage}_train"] = _launch_counts(kernels)
+        _check_launches(launches[f"storage_{storage}_train"],
+                        _expect(k1=steps, k2=steps),
+                        f"{steps} train steps, {storage} storage")
+        losses = torch.stack(outs).float().cpu()
+        if not (bool(torch.isfinite(losses).all())
+                and all(bool(torch.isfinite(t.float()).all())
+                        for t in state.memory.tensors().values())):
+            raise AssertionError(f"{storage} storage: non-finite values")
+        mem = state.memory
+        res[storage] = dict(
+            ms_per_step=statistics.median(ms),
+            host_ms_per_step=statistics.median(host),
+            memory_state_bytes=mem.nbytes,
+            memory_mail_bytes=mem.node_memory.nbytes + mem.mailbox.nbytes,
+            peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+            peak_over_start_mib=(torch.cuda.max_memory_allocated() - base)
+            / 2 ** 20, mean_loss=float(losses.mean()))
+        del model, trainer, state, mem
+    f32 = dict(dropout=0.0, att_dropout=0.0)
+    sides = {s: make(s, **f32) for s in ("float32", "bfloat16")}
+    errs = dict(loss_rel=[], memory_rel=[])
+    for b in tb[warm:warm + 3]:
+        loss = {s: t.train_step(st, dg, ef, b)[1]
+                for s, (_, t, st) in sides.items()}
+        errs["loss_rel"].append(_rel(loss["bfloat16"], loss["float32"]))
+        a, w = sides["bfloat16"][2].memory, sides["float32"][2].memory
+        errs["memory_rel"].append(max(
+            float(((getattr(a, k).float() - getattr(w, k)).abs()
+                   / getattr(w, k).abs().clamp_min(1.0)).max())
+            for k in ("node_memory", "mailbox")))
+    res["f32_compute"] = dict(steps=3, tol=STORAGE_TOL, **errs)
+    ratio = res["bfloat16"]["memory_mail_bytes"] \
+        / res["float32"]["memory_mail_bytes"]
+    res["memory_mail_bytes_ratio"] = ratio
+    _log("train", path="storage", **res)
+    if ratio != 0.5 or any(max(errs[k]) > STORAGE_TOL[k] for k in errs):
+        raise AssertionError(f"bf16 storage: {res}")
+    return dict(launches=launches, **res)
+
+
+def start_parity():
+    """Start phase 18's smoke run of the port's parity harness
+    (``gnnflow_tpu_torch.scripts.parity_run --smoke --smoke-models TGN``)
+    as a subprocess, which runs each cell as a subprocess of the training
+    script on the card; the phases that time nothing run beside it.
+    Returns what :func:`phase_parity` waits for."""
+    from gnnflow_tpu_torch.ops import _build
+    path = os.path.join(_build.BUILD_DIR, "parity_smoke_torch.json")
+    log = open(os.path.join(_build.BUILD_DIR, "parity_smoke_torch.log"), "w")
+    if os.path.exists(path):
+        os.remove(path)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gnnflow_tpu_torch.scripts.parity_run",
+         "--smoke", "--smoke-models", "TGN", "--json-out", path,
+         "--timeout", "300"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=log, stderr=subprocess.STDOUT)
+    return dict(proc=proc, path=path, log=log, t0=time.perf_counter())
+
+
+def stop_parity(run) -> None:
+    """Stop the harness where it still runs (after a failure)."""
+    if run["proc"].poll() is None:
+        run["proc"].kill()
+        run["proc"].wait()
+    run["log"].close()
+
+
+def phase_parity(run):
+    """Phase 18: the port's parity harness in its smoke mode on the card
+    at the default smoke size (3 epochs of a 20,000-edge synthetic stream)
+    for TGN and the two host cells (the GDELT analogue with 182-dim edge
+    features and the MAG analogue with bf16 memory storage, both with the
+    feature tables on the host behind an LRU cache), started by
+    :func:`start_parity`: its exit code, verdict and each cell's AP.
+    Then the harness without data: every cell skipped, the verdict
+    NO-DATA."""
+    import contextlib
+    import io
+    import json
+    from gnnflow_tpu_torch.ops import _build
+    from gnnflow_tpu_torch.scripts import parity_run
+    rc = run["proc"].wait(timeout=900)
+    run["log"].close()
+    seconds = time.perf_counter() - run["t0"]
+    if not os.path.exists(run["path"]):
+        with open(run["log"].name) as f:
+            raise AssertionError(f"parity harness exited {rc}: "
+                                 f"{f.read()[-3000:]}")
+    with open(run["path"]) as f:
+        report = json.load(f)
+    res = dict(seconds=seconds, rc=rc,
+               verdict=report["summary"]["verdict"],
+               cells={c["dataset"]: dict(status=c["status"],
+                                         test_ap=c.get("test_ap"),
+                                         test_auc=c.get("test_auc"),
+                                         elapsed_s=c.get("elapsed_s"))
+                      for c in report["cells"]})
+    empty = os.path.join(_build.BUILD_DIR, "parity_no_data")
+    os.makedirs(empty, exist_ok=True)
+    nd = os.path.join(_build.BUILD_DIR, "parity_no_data_torch.json")
+    with contextlib.redirect_stdout(io.StringIO()):   # its per-cell lines
+        res["no_data_rc"] = parity_run.main(["--data-dir", empty,
+                                             "--json-out", nd])
+    with open(nd) as f:
+        res["no_data_verdict"] = json.load(f)["summary"]["verdict"]
+    _log("parity", **res)
+    if not (rc == 0 and res["verdict"] == "PASS"
+            and len(res["cells"]) == 3 and res["no_data_rc"] == 0
+            and res["no_data_verdict"] == "NO-DATA"):
+        raise AssertionError(f"parity: {res}, "
+                             f"{[c.get('tail') for c in report['cells']]}")
+    return res
+
 
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -4003,7 +4384,6 @@ def main() -> int:
     tr = phase_train(torch, kernels, stream)
     dd = phase_dedup(torch, kernels, stream)
     en = phase_entry(torch, kernels)
-    phase_self_check(torch)
     tg = phase_tgat(torch, kernels, stream)
     dy = phase_dysat(torch, kernels, stream)
     ap = phase_apan(torch, kernels, stream)
@@ -4012,6 +4392,14 @@ def main() -> int:
     inf = phase_inference(torch, kernels, on)
     ca = phase_cache(torch, kernels, on)
     pa = phase_parallel(torch, kernels, stream)
+    so = phase_storage(torch, kernels, stream)
+    # the CPU-card checks time nothing, so the parity harness runs beside
+    parity = start_parity()
+    try:
+        phase_self_check(torch)
+        phase_parity(parity)
+    finally:
+        stop_parity(parity)
     # launches on each main path, counted from 0 just before it: TGN eval
     # batches, train steps at att_dropout 0.2 and at 0, dedup train steps,
     # fallback steps and eval batches, the entry script's two epochs; TGAT
@@ -4028,7 +4416,12 @@ def main() -> int:
     # phase's serial and pipelined train steps, eval batches, steps on the
     # host-placed store, and the script's two epochs; the parallel phase's
     # DP and partitioned TGN train steps and eval batches, partitioned
-    # TGAT eval batches and train steps, and the partitioned script's epoch
+    # TGAT eval batches and train steps, TGN on replicated and sharded
+    # memory (train, eval) and the sharded side's f32 steps per instance
+    # and on the dedup, the cached steps over a host and a sharded master,
+    # the partitioned script's epoch and the multiprocess script's cut
+    # epoch with the cache; the storage phase's train steps in f32 and
+    # bf16 storage
     paths = {"eval": sl["launches"], "train": tr["launches"],
              "train_att_dropout0": tr["att_dropout0"]["launches"],
              "dedup_train": dd["launches"],
@@ -4036,7 +4429,7 @@ def main() -> int:
              "dedup_eval": dd["eval"]["launches"], "entry": en["launches"],
              **tg["launches"], **dy["launches"], **ap["launches"],
              **st["launches"], **on["launches"], **inf["launches"],
-             **ca["launches"], **pa["launches"]}
+             **ca["launches"], **pa["launches"], **so["launches"]}
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())

@@ -1,11 +1,19 @@
-"""Feature caches: a card-resident cache over a host-resident master table.
+"""Feature caches: a card-resident cache over a host-resident master table
+or over a table sharded over the ranks of a process group.
 
 Counterpart of ``gnnflow_tpu/cache/cache.py``.  It serves the datasets
 whose feature tables do not fit on the card (GDELT, MAG): the master
 table stays in host memory (optionally a memory map), a fixed-capacity f32
 buffer lives on the card, and each fetch gathers its hits from the buffer
 while its misses go host to card through pinned staging buffers, in f32
-or bf16 (``transfer_dtype``; the buffer stays f32).
+or bf16 (``transfer_dtype``; the buffer stays f32).  A master with
+``pull`` (:class:`~gnnflow_tpu_torch.parallel.kvstore.ShardedTable`, the
+reference's KV store, ``cache.py:364-377``) serves the misses with one
+routed pull on the device instead, in f32 whatever ``transfer_dtype``
+says, as the JAX package's sharded master does (``cache.py:104-175``).
+The pull is a collective: the host bookkeeping is identical on every
+rank, which fetches the same ids, so every rank pulls the same misses in
+the same order, and a fetch with no miss still joins the exchange.
 
 Per kind (node, edge) the state is the reference's (``cache.py:108-134``):
 the ``[capacity, dim]`` buffer on the card, and on the host a ``flag[N]``
@@ -18,8 +26,7 @@ The device work of a fetch (the hit gather, the scatter of the misses,
 the expansion to the query order, the mask) and of an insert is plain
 PyTorch, as it is XLA in the JAX package (``cache.py:36-66``); its
 power-of-two padding of shapes (``_bucket``), which bounds XLA's compiles,
-has no purpose here.  The master table behind ``.pull`` (a mesh-sharded
-table, ``cache.py:117-175``) comes with the multi-GPU slice.
+has no purpose here.
 """
 from __future__ import annotations
 
@@ -116,24 +123,23 @@ def _host_rows(table) -> torch.Tensor:
 
 
 class _KindCache:
-    """Cache state for one feature kind (node or edge) over a host
-    master table (a NumPy array or memory map, ``[num_rows, dim]``)."""
+    """Cache state for one feature kind (node or edge) over a master table
+    ``[num_rows, dim]``: a NumPy array or memory map on the host, or a
+    sharded table with ``pull`` (``distributed``)."""
 
     def __init__(self, capacity: int, num_ids: int, dim: int, table,
                  transfer_dtype: str, device: torch.device,
                  staging: _Staging):
-        if hasattr(table, "pull"):
-            raise NotImplementedError(
-                "a distributed master table (.pull) is not ported yet "
-                "(ROADMAP.md, modules to port, item 12)")
         if transfer_dtype not in ("float32", "bfloat16"):
             raise ValueError(transfer_dtype)
         self.capacity = int(capacity)
         self.num_ids = int(num_ids)
         self.dim = int(dim)
-        self._tdt = getattr(torch, transfer_dtype)
+        self.distributed = hasattr(table, "pull")
+        self._tdt = torch.float32 if self.distributed \
+            else getattr(torch, transfer_dtype)
         self.table = table                       # master [N, dim]
-        self._rows = _host_rows(table)
+        self._rows = None if self.distributed else _host_rows(table)
         self.device = device
         self._staging = staging
         self.buffer = torch.zeros((max(self.capacity, 1), self.dim),
@@ -154,7 +160,11 @@ class _KindCache:
         """Master rows of ``ids`` on the device in ``dtype`` (bf16 rounds
         to nearest even, as ``ml_dtypes`` does); a negative id counts from
         the end, as NumPy indexing does.  The rows are gathered straight
-        into the staging buffer, outside the interpreter lock."""
+        into the staging buffer, outside the interpreter lock.  A sharded
+        master pulls them, in f32 (a collective, also for no ids)."""
+        if self.distributed:
+            return self.table.pull(torch.from_numpy(
+                np.asarray(ids, np.int64)).to(self.device)).float()
         n = self._rows.shape[0]
         idx = torch.from_numpy(np.where(ids < 0, ids + n, ids))
 
@@ -263,7 +273,8 @@ class Cache:
     features, and keeps the batch's target-edge features (for TGN's
     mails) in ``target_edge_features``.  ``device`` holds the buffers
     (``cuda`` by default; raises without a card).  The master tables are
-    NumPy arrays or memory maps and are never written."""
+    NumPy arrays or memory maps, or sharded tables with ``pull`` on every
+    rank of a group (misses are routed pulls), and are never written."""
 
     name = "Cache"
 

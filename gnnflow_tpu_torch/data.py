@@ -6,14 +6,16 @@ Counterpart of ``gnnflow_tpu/data.py`` (``EdgeTable``, ``load_dataset``,
 The same seed gives byte-identical arrays, so both packages can run one
 stream.  ``load_dataset`` reads, and ``write_synthetic_dataset`` writes,
 the reference's ``edges.csv`` with NumPy instead of pandas, which the
-port does not import.  The chunked and partitioned loaders
-(``data.py:103-204``) are not ported yet (ROADMAP.md, item 12).
+port does not import, and so do the chunked and partitioned loaders
+(``load_dataset_in_chunks``, ``load_partitioned_dataset``) and the
+sharded node-feature load (``load_sharded_node_feat``, ``data.py:103-204``).
 """
 from __future__ import annotations
 
+import itertools
 import os
 from dataclasses import dataclass
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -52,25 +54,45 @@ class EdgeTable:
                          np.concatenate([self.eid, other.eid]))
 
 
-def _read_edges_csv(path: str) -> Tuple[EdgeTable, np.ndarray]:
-    """The edges and ``ext_roll`` column of a pandas-written ``edges.csv``:
-    a header row, comma separated numbers; an unnamed first column (the
-    written index) is the edge id, as pandas' ``Unnamed: 0`` renamed to
-    ``eid`` (``data.py:94-100``), else the row number is."""
-    with open(path) as f:
-        header = f.readline().rstrip("\r\n").split(",")
-    names = ["eid" if h in ("", "Unnamed: 0") else h for h in header]
-    cols = np.loadtxt(path, delimiter=",", skiprows=1, dtype=np.float64,
-                      ndmin=2)
+def _header(f) -> List[str]:
+    """The column names of an ``edges.csv`` header line; an unnamed first
+    column (the written index) is ``eid``, as pandas' ``Unnamed: 0``
+    renamed (``data.py:94-100``)."""
+    header = f.readline().rstrip("\r\n").split(",")
+    return ["eid" if h in ("", "Unnamed: 0") else h for h in header]
+
+
+def _parse_edges(path: str, names: List[str], lines,
+                 offset: int = 0) -> Tuple[EdgeTable, np.ndarray]:
+    """The edges and ``ext_roll`` column of comma separated ``lines``
+    under ``names``; without an ``eid`` column the edge id is the row
+    number counted from ``offset``."""
+    cols = np.loadtxt(lines, delimiter=",", dtype=np.float64, ndmin=2)
     if cols.shape[1] != len(names):
         raise ValueError(f"{path}: {cols.shape[1]} columns, header names "
                          f"{len(names)}")
     col = {n: cols[:, i] for i, n in enumerate(names)}
-    eid = col["eid"] if "eid" in col else np.arange(len(cols))
+    eid = col["eid"] if "eid" in col \
+        else np.arange(offset, offset + len(cols))
     return EdgeTable(src=col["src"].astype(np.int64),
                      dst=col["dst"].astype(np.int64),
                      time=col["time"].astype(np.float32),
-                     eid=eid.astype(np.int64)), col["ext_roll"]
+                     eid=eid.astype(np.int64)), \
+        col["ext_roll"].astype(np.int64)
+
+
+def _read_edges_csv(path: str) -> Tuple[EdgeTable, np.ndarray]:
+    """The edges and ``ext_roll`` column of a pandas-written ``edges.csv``:
+    a header row, comma separated numbers; the edge id is the unnamed
+    first column where there is one, else the row number."""
+    with open(path) as f:
+        names = _header(f)
+        return _parse_edges(path, names, f)
+
+
+def _data_dir(data_dir: Optional[str]) -> str:
+    return data_dir if data_dir is not None \
+        else os.path.join(get_project_root_dir(), "data")
 
 
 def load_dataset(dataset: str, data_dir: Optional[str] = None) \
@@ -86,6 +108,79 @@ def load_dataset(dataset: str, data_dir: Optional[str] = None) \
     train_end = int(np.searchsorted(ext_roll, 1))
     val_end = int(np.searchsorted(ext_roll, 2))
     return full[:train_end], full[train_end:val_end], full[val_end:], full
+
+
+def load_dataset_in_chunks(dataset: str, chunksize: int,
+                           data_dir: Optional[str] = None
+                           ) -> Iterator[Tuple[EdgeTable, np.ndarray]]:
+    """Stream ``<data_dir>/<dataset>/edges.csv`` in chunks of
+    ``chunksize`` rows (``data.py:103-115``): ``(EdgeTable, ext_roll)``
+    per chunk; without an index column the edge ids continue across the
+    chunks."""
+    path = os.path.join(_data_dir(data_dir), dataset, "edges.csv")
+    offset = 0
+    with open(path) as f:
+        names = _header(f)
+        while True:
+            lines = list(itertools.islice(f, chunksize))
+            if not lines:
+                return
+            yield _parse_edges(path, names, lines, offset)
+            offset += len(lines)
+
+
+def load_partitioned_dataset(dataset: str, data_dir: Optional[str] = None,
+                             rank: int = 0, world_size: int = 1,
+                             partition_train_data: bool = False):
+    """This rank's pre-partitioned splits,
+    ``edges_{train,val,test}_<world_size>_<rank>.csv``
+    (``data.py:137-157``): ``(train, val, test)`` edge tables, train None
+    with ``partition_train_data``.  Raises ``ValueError`` for a missing
+    file."""
+    base = os.path.join(_data_dir(data_dir), dataset)
+
+    def read(split):
+        path = os.path.join(base, f"edges_{split}_{world_size}_{rank}.csv")
+        if not os.path.exists(path):
+            raise ValueError(f"{path} does not exist")
+        return _read_edges_csv(path)[0]
+
+    train = None if partition_train_data else read("train")
+    return train, read("val"), read("test")
+
+
+def load_sharded_node_feat(dataset: str, group=None, device="cuda",
+                           data_dir: Optional[str] = None):
+    """The node features of per-machine part files
+    ``node_features_<i>.npy`` as a :class:`~gnnflow_tpu_torch.parallel.
+    kvstore.ShardedTable` over ``group`` (``data.py:160-204``):
+    ``(table, total_rows)``.  Each part is memory-mapped and only the rows
+    that overlap this rank's block are copied into it (f32, zero rows past
+    the table), so no rank materialises the whole table.  Raises
+    ``ValueError`` where there is no part."""
+    from gnnflow_tpu_torch.common import resolve_device
+    from gnnflow_tpu_torch.parallel.dist_context import (group_rank,
+                                                         group_size)
+    from gnnflow_tpu_torch.parallel.kvstore import ShardedTable
+    base = os.path.join(_data_dir(data_dir), dataset)
+    parts = []
+    while os.path.exists(os.path.join(base,
+                                      f"node_features_{len(parts)}.npy")):
+        parts.append(np.load(os.path.join(
+            base, f"node_features_{len(parts)}.npy"), mmap_mode="r"))
+    if not parts:
+        raise ValueError(f"no node_features_*.npy parts under {base}")
+    offs = np.cumsum([0] + [p.shape[0] for p in parts])
+    total, dim = int(offs[-1]), parts[0].shape[1]
+    rows = -(-total // group_size(group))
+    lo = group_rank(group) * rows
+    block = np.zeros((rows, dim), np.float32)
+    for k, p in enumerate(parts):
+        s, e = max(lo, int(offs[k])), min(lo + rows, int(offs[k + 1]))
+        if s < e:
+            block[s - lo: e - lo] = p[s - offs[k]: e - offs[k]]
+    return ShardedTable.from_block(block, total, group,
+                                   resolve_device(device)), total
 
 
 def load_feat(dataset: str, data_dir: Optional[str] = None,

@@ -1,9 +1,9 @@
 """Node memory and mailbox, the GRU (TGN) and transformer (APAN) memory
 updaters and the write-back.
 
-Counterpart of ``gnnflow_tpu/models/memory.py`` for f32 storage:
-``MemoryState`` with one mail slot or ``S`` of them (APAN's circular
-mailbox) and ``init_memory`` (``:50-208``), reset, resize, backup and
+Counterpart of ``gnnflow_tpu/models/memory.py``: ``MemoryState`` with one
+mail slot or ``S`` of them (APAN's circular mailbox), in f32 or bf16
+storage, and ``init_memory`` (``:50-208``), reset, resize, backup and
 restore (``:207-283``), ``DedupMemoryInput`` and ``RawMemoryInput``
 (``:286-311``), ``prepare_input_at`` and ``prepare_input`` with the
 meaning of ``prepare_input_bf16`` (``:314-433``), ``GRUMemoryUpdater`` on
@@ -15,8 +15,20 @@ the circular slot write (``:756-875``).
 Unlike the JAX package, which builds a new state array every step, the
 port updates the memory tensors **in place** (:func:`update_mem_mail`,
 :func:`reset_memory`).  The JAX package's row tables, their 128-lane
-pads and its split per-slot mail table are TPU layout: here the four
-logical tensors and the slot cursor are plain row-major tensors.
+pads, its split per-slot mail table and its bf16 pair packing into int32
+lanes are TPU layout: here the four logical tensors and the slot cursor
+are plain row-major tensors, ``mem`` and ``mail`` in bf16 under
+``storage="bfloat16"`` (rounded to nearest even, the bits of JAX's
+``_pack_bf16``), timestamps f32 and the cursor int64.
+
+A state can be sharded over the ranks of a process group
+(:func:`~gnnflow_tpu_torch.parallel.kvstore.shard_memory_state`,
+``parallel/kvstore.py:107-120``): rank r then holds rows ``[r·R, (r+1)·R)``
+with ``R = ceil(N / W)``, zero-padded, and ``shard`` says where.  A pull
+(:func:`prepare_input_at`) is one routed exchange (a collective: every
+rank makes it, with any number of ids); the write-back applies only the
+rows a rank owns, from the global batch every rank holds, so it needs no
+exchange.
 
 Kept reference quirk: mailbox timestamps are ``last_updated_ts[:2B]`` in
 block order (src block, then dst block) while mails and their node ids are
@@ -25,8 +37,8 @@ interleaved ``[s0, d0, s1, d1, ...]``.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, fields
-from typing import Dict, Optional, Tuple, Union
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -38,23 +50,50 @@ from gnnflow_tpu_torch.ops.apan_kv import apan_table_pull
 from gnnflow_tpu_torch.ops.segment import unique_keep_last_mask
 from gnnflow_tpu_torch.ops.segment_sum import expand_compact
 
+# the state's tensors, in the order a routed pull packs their rows
+TENSORS = ("node_memory", "node_memory_ts", "mailbox", "mailbox_ts",
+           "mailbox_ptr")
+STORAGES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass
+class MemoryShard:
+    """Where a sharded state's rows lie: rank ``rank`` of ``world_size``
+    in ``group`` holds the global rows ``[lo, lo + rows_per_rank)`` of
+    ``num_nodes``."""
+
+    group: Any
+    rank: int
+    world_size: int
+    rows_per_rank: int
+    num_nodes: int
+
+    @property
+    def lo(self) -> int:
+        return self.rank * self.rows_per_rank
+
 
 @dataclass
 class MemoryState:
-    """Per-node memory state: the reference's four tensors, f32, with one
-    mail slot or ``S > 1`` (APAN's circular mailbox), and the per-node
-    write cursor of the slots (``memory.py:58-66``; int64, always 0 with
-    one slot)."""
+    """Per-node memory state: the reference's four tensors, with one mail
+    slot or ``S > 1`` (APAN's circular mailbox), and the per-node write
+    cursor of the slots (``memory.py:58-66``; int64, always 0 with one
+    slot).  ``node_memory`` and ``mailbox`` are f32 or bf16 (the
+    storage), the timestamps f32.  With ``shard`` set the tensors hold
+    this rank's block of rows only."""
 
     node_memory: torch.Tensor     # [N, dim_memory]
     node_memory_ts: torch.Tensor  # [N]
     mailbox: torch.Tensor         # [N, dim_raw] or [N, S, dim_raw]
     mailbox_ts: torch.Tensor      # [N] or [N, S]
     mailbox_ptr: torch.Tensor     # [N] int64: the slot written next, mod S
+    shard: Optional[MemoryShard] = None
 
     @property
     def num_nodes(self) -> int:
-        return self.node_memory.shape[0]
+        """The nodes of the whole state, over every rank."""
+        return self.shard.num_nodes if self.shard is not None \
+            else self.node_memory.shape[0]
 
     @property
     def dim_memory(self) -> int:
@@ -69,60 +108,98 @@ class MemoryState:
     def mailbox_slots(self) -> int:
         return 1 if self.mailbox.dim() == 2 else self.mailbox.shape[1]
 
+    @property
+    def storage(self) -> str:
+        return "bfloat16" if self.node_memory.dtype == torch.bfloat16 \
+            else "float32"
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of this rank's tensors."""
+        return sum(getattr(self, n).nbytes for n in TENSORS)
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        return {n: getattr(self, n) for n in TENSORS}
+
 
 def init_memory(num_nodes: int, dim_memory: int, dim_edge: int,
-                device, mailbox_slots: int = 1) -> MemoryState:
+                device, mailbox_slots: int = 1,
+                storage: str = "float32") -> MemoryState:
+    """Zero memory for ``num_nodes`` nodes; ``storage="bfloat16"`` keeps
+    ``mem`` and ``mail`` in bf16 and needs even ``dim_memory`` and
+    ``dim_raw`` (``memory.py:176-185``)."""
+    if storage not in STORAGES:
+        raise ValueError(f"unknown memory storage {storage!r}")
     dim_raw = 2 * dim_memory + dim_edge
+    if storage == "bfloat16" and (dim_memory % 2 or dim_raw % 2):
+        raise ValueError(
+            "bfloat16 memory storage needs even dim_memory/dim_raw")
     z = dict(dtype=torch.float32, device=device)
+    v = dict(dtype=STORAGES[storage], device=device)
     slots = (mailbox_slots,) if mailbox_slots > 1 else ()
-    return MemoryState(torch.zeros(num_nodes, dim_memory, **z),
+    return MemoryState(torch.zeros(num_nodes, dim_memory, **v),
                        torch.zeros(num_nodes, **z),
-                       torch.zeros(num_nodes, *slots, dim_raw, **z),
+                       torch.zeros(num_nodes, *slots, dim_raw, **v),
                        torch.zeros(num_nodes, *slots, **z),
                        torch.zeros(num_nodes, dtype=torch.long,
                                    device=device))
 
 
 def reset_memory(state: MemoryState) -> MemoryState:
-    """Zero every tensor of ``state``, in place (``memory.py:207-208``)."""
-    for f in fields(state):
-        getattr(state, f.name).zero_()
+    """Zero every tensor of ``state`` (a rank's block where sharded), in
+    place (``memory.py:207-208``)."""
+    for t in state.tensors().values():
+        t.zero_()
     return state
+
+
+def _grow(t: torch.Tensor, rows: int) -> torch.Tensor:
+    out = t.new_zeros((rows,) + tuple(t.shape[1:]))
+    out[: t.shape[0]] = t
+    return out
 
 
 def resize_memory(state: MemoryState, num_nodes: int) -> MemoryState:
     """A state of ``num_nodes`` rows: ``state`` itself where it has as
     many, else new tensors holding its rows and zero rows after them,
-    every mail slot and the cursor included (``memory.py:211-221``)."""
+    every mail slot and the cursor included (``memory.py:211-221``).  A
+    sharded state is gathered, grown and sharded again over its group (a
+    collective)."""
     if num_nodes <= state.num_nodes:
         return state
-
-    def grow(t: torch.Tensor) -> torch.Tensor:
-        out = t.new_zeros((num_nodes,) + tuple(t.shape[1:]))
-        out[: t.shape[0]] = t
-        return out
-
-    return MemoryState(**{f.name: grow(getattr(state, f.name))
-                          for f in fields(state)})
+    if state.shard is not None:
+        from gnnflow_tpu_torch.parallel.kvstore import (shard_memory_state,
+                                                        unshard_memory)
+        return shard_memory_state(
+            resize_memory(unshard_memory(state), num_nodes),
+            state.shard.group)
+    return MemoryState(**{n: _grow(t, num_nodes)
+                          for n, t in state.tensors().items()})
 
 
 def backup_memory(state: MemoryState) -> Dict[str, torch.Tensor]:
-    """Host-side snapshot: a CPU copy of each tensor
-    (``memory.py:224-233``)."""
-    return {f.name: getattr(state, f.name).detach().cpu().clone()
-            for f in fields(state)}
+    """Host-side snapshot: a CPU copy of each tensor, in its storage
+    dtype (``memory.py:224-233``); of a rank's block where sharded."""
+    return {n: t.detach().cpu().clone() for n, t in state.tensors().items()}
 
 
-def restore_memory(backup: Dict[str, torch.Tensor], device) -> MemoryState:
+def restore_memory(backup: Dict[str, torch.Tensor], device,
+                   shard: Optional[MemoryShard] = None) -> MemoryState:
     """A :class:`MemoryState` on ``device`` from :func:`backup_memory`'s
-    snapshot (``memory.py:236-283``, f32 storage); a snapshot without
-    ``mailbox_ptr`` restores the cursor as 0, as there."""
+    snapshot (``memory.py:236-283``), in the snapshot's storage (bf16 where
+    its ``node_memory`` is); a snapshot without ``mailbox_ptr`` restores
+    the cursor as 0, as there.  ``shard`` restores a rank's block of a
+    sharded state (the ``shard`` of the state it was taken from)."""
     n = backup["node_memory"].shape[0]
     ptr = backup.get("mailbox_ptr", torch.zeros(n))
+    vdt = backup["node_memory"].dtype
+    vdt = vdt if vdt == torch.bfloat16 else torch.float32
     return MemoryState(
-        **{f.name: backup[f.name].to(device, torch.float32)
-           for f in fields(MemoryState) if f.name != "mailbox_ptr"},
-        mailbox_ptr=ptr.to(device, torch.long))
+        node_memory=backup["node_memory"].to(device, vdt),
+        node_memory_ts=backup["node_memory_ts"].to(device, torch.float32),
+        mailbox=backup["mailbox"].to(device, vdt),
+        mailbox_ts=backup["mailbox_ts"].to(device, torch.float32),
+        mailbox_ptr=ptr.to(device, torch.long), shard=shard)
 
 
 @dataclass
@@ -152,26 +229,75 @@ class RawMemoryInput:
     state: MemoryState
 
 
+def _pull_rows(state: MemoryState, nids: torch.Tensor,
+               vdt: torch.dtype) -> Dict[str, torch.Tensor]:
+    """The rows of ``nids`` (in ``[0, num_nodes)``) of every tensor the
+    pull needs (the cursor with S slots only), ``mem`` and ``mail`` in
+    ``vdt``.  A sharded state routes the ids to their owners and their
+    rows back packed as bytes, ``[mem | mem_ts | mail | mail_ts (| ptr)]``:
+    one :class:`~gnnflow_tpu_torch.parallel.dist_context.Route` and one
+    ``back``, whatever the fields."""
+    names = TENSORS if state.mailbox_slots > 1 else TENSORS[:-1]
+
+    def rows(idx, dt):
+        out = {n: getattr(state, n)[idx] for n in names}
+        for n in ("node_memory", "mailbox"):
+            out[n] = out[n].to(dt)
+        return out
+
+    if state.shard is None:
+        if vdt.itemsize < state.node_memory.dtype.itemsize:
+            # cast the tables once, then gather: half the gathered bytes
+            out = {n: getattr(state, n) for n in names}
+            out["node_memory"] = out["node_memory"].to(vdt)
+            out["mailbox"] = out["mailbox"].to(vdt)
+            return {n: t[nids] for n, t in out.items()}
+        return rows(nids, vdt)
+    from gnnflow_tpu_torch.parallel.dist_context import Route
+    sh = state.shard
+    route = Route(torch.div(nids, sh.rows_per_rank, rounding_mode="floor"),
+                  sh.group)
+    wire = min(vdt, state.node_memory.dtype, key=lambda d: d.itemsize)
+    local = rows(route.send(nids) - sh.lo, wire)
+    m = nids.shape[0]
+    shapes = {n: (m,) + tuple(t.shape[1:]) for n, t in local.items()}
+    dtypes = {n: t.dtype for n, t in local.items()}
+    packed = torch.cat([t.reshape(t.shape[0], -1).view(torch.uint8)
+                        for t in local.values()], 1)
+    got = route.back(packed)
+    out, off = {}, 0
+    for n in local:
+        w = math.prod(shapes[n][1:]) * dtypes[n].itemsize
+        out[n] = got[:, off: off + w].contiguous().view(dtypes[n]) \
+            .reshape(shapes[n])
+        off += w
+    for n in ("node_memory", "mailbox"):
+        out[n] = out[n].to(vdt)
+    return out
+
+
 def prepare_input_at(state: MemoryState, nids: torch.Tensor,
                      dtype: torch.dtype = torch.float32
                      ) -> Dict[str, torch.Tensor]:
     """Pull memory rows for ``nids`` (ids clip into the table): ``mem``,
     ``mem_ts``, ``mail`` ([L, dim_raw], or [L, S, dim_raw] with S slots),
     ``mail_ts`` ([L] or [L, S]) and, with S slots, the cursor
-    ``mail_ptr`` [L].
+    ``mail_ptr`` [L].  ``mem`` and ``mail`` come in ``dtype``; timestamps
+    stay f32.
 
-    ``dtype=torch.bfloat16`` is what ``prepare_input_bf16`` means: memory
-    and mail values round to bf16 (the node tables are cast once, then
-    gathered, halving the gathered bytes) while timestamps stay f32.  The
-    TPU's lane packing of that pull has no GPU counterpart."""
+    ``dtype=torch.bfloat16`` over f32 storage is what ``prepare_input_bf16``
+    means: memory and mail values round to bf16 (the node tables are cast
+    once, then gathered, halving the gathered bytes).  The TPU's lane
+    packing of that pull has no GPU counterpart.  Over bf16 storage the
+    rows are the stored bf16 values, widened exactly for f32.  A sharded
+    state's pull is a collective (:func:`_pull_rows`) and moves the
+    narrower of the storage and ``dtype``."""
     nids = nids.clamp(0, state.num_nodes - 1)
-    mem, mail = state.node_memory, state.mailbox
-    if dtype != torch.float32:
-        mem, mail = mem.to(dtype), mail.to(dtype)
-    out = {"mem": mem[nids], "mem_ts": state.node_memory_ts[nids],
-           "mail": mail[nids], "mail_ts": state.mailbox_ts[nids]}
+    r = _pull_rows(state, nids, dtype)
+    out = {"mem": r["node_memory"], "mem_ts": r["node_memory_ts"],
+           "mail": r["mailbox"], "mail_ts": r["mailbox_ts"]}
     if state.mailbox_slots > 1:
-        out["mail_ptr"] = state.mailbox_ptr[nids]
+        out["mail_ptr"] = r["mailbox_ptr"]
     return out
 
 
@@ -181,6 +307,31 @@ def prepare_input(state: MemoryState, mfg: MFG,
     """Pull memory rows for the MFG's nodes (padded ids clip to 0);
     ``memory.py:377-383``."""
     return prepare_input_at(state, mfg.all_nodes(), dtype)
+
+
+def table_ok(state: MemoryState) -> bool:
+    """Can the transformer updater pull from the whole tables
+    (:func:`~gnnflow_tpu_torch.ops.apan_kv.apan_table_pull`)?  Not over a
+    sharded state, whose tables no rank holds, nor over bf16 storage, as
+    in JAX (``train.py:232-241, 842``): those take pulled rows."""
+    return state.shard is None and state.storage == "float32"
+
+
+def pull_dtype(state: MemoryState,
+               compute_dtype: Optional[torch.dtype]) -> torch.dtype:
+    """The dtype of a compact (dedup) pull: f32, even under bf16 compute
+    (``memory.py:516``), but the stored bf16 over bf16 storage under bf16
+    compute (a packed state's rows are bf16 there)."""
+    return torch.bfloat16 if state.storage == "bfloat16" \
+        and compute_dtype == torch.bfloat16 else torch.float32
+
+
+def table_rows(table, ids: torch.Tensor) -> torch.Tensor:
+    """Rows of ``ids`` of a feature table: a tensor (ids clip into it) or
+    a sharded table with ``pull`` (a collective)."""
+    if hasattr(table, "pull"):
+        return table.pull(ids)
+    return table[ids.clamp(0, table.shape[0] - 1)]
 
 
 def _node_feat_proj(dim_node: int, dim_memory: int,
@@ -199,9 +350,10 @@ def _with_node_feats(updater: nn.Module, mfg: MFG, mem_input,
     rows' updated memory for write-back: ``(h, dst_updated)``.
 
     On the dedup (``memory.py:545-577, 722-743``) the features of the
-    unique pairs are gathered from the table and added before the
-    expansion, whose backward is K4; else ``node_feats`` are the
-    instances' rows.  Without node features ``h`` is ``updated``."""
+    unique pairs are gathered from the table (pulled from a sharded one)
+    and added before the expansion, whose backward is K4; else
+    ``node_feats`` are the instances' rows.  Without node features ``h``
+    is ``updated``."""
     def add(nf):
         proj = updater.node_feat_proj
         return updated + (nf if proj is None else proj(nf))
@@ -214,7 +366,7 @@ def _with_node_feats(updater: nn.Module, mfg: MFG, mem_input,
     if updater.dim_node == 0 or di.node_feats is None:
         h = expand_compact(updated, di.inv, di.sidx, di.rank_sorted)
         return h, h[:b]
-    nf = di.node_feats[di.uniq_nids.clamp(0, di.node_feats.shape[0] - 1)]
+    nf = table_rows(di.node_feats, di.uniq_nids)
     h = expand_compact(add(nf), di.inv, di.sidx, di.rank_sorted)
     return h, updated[di.inv[:b]]
 
@@ -255,10 +407,13 @@ class GRUMemoryUpdater(nn.Module):
         all_ts = mfg.all_ts()
         if isinstance(mem_input, DedupMemoryInput):
             # the compact pull is f32 even under bf16 compute
-            # (memory.py:516); the GRU runs over all cap rows, unused slots
-            # (nid 0, ts 0) included, as there
+            # (memory.py:516), bf16 over bf16 storage there; the GRU runs
+            # over all cap rows, unused slots (nid 0, ts 0) included, as
+            # there
             di = mem_input
-            pulled = prepare_input_at(di.state, di.uniq_nids)
+            pulled = prepare_input_at(
+                di.state, di.uniq_nids,
+                pull_dtype(di.state, self.cell.compute_dtype))
             updated = self.cell(pulled["mem"], _latest_mail(pulled),
                                 di.uniq_ts - pulled["mem_ts"], self.time_enc)
         else:
@@ -297,9 +452,11 @@ class TransformerMemoryUpdater(nn.Module):
     then adds the time part and the bias in the compute dtype; a dict of
     pulled rows (:func:`prepare_input_at`) projects per instance as a sum
     of per-part products; a :class:`DedupMemoryInput` runs the table path
-    over the unique (nid, ts) pairs and expands the result back to the
-    instances with :func:`~gnnflow_tpu_torch.ops.segment_sum.expand_compact`
-    (whose backward is K4).  Scores are summed over each head in f32 and
+    over the unique (nid, ts) pairs, or over a sharded or bf16-stored
+    state (:func:`table_ok`) pulls their rows and projects them, and
+    expands the result back to the instances with
+    :func:`~gnnflow_tpu_torch.ops.segment_sum.expand_compact` (whose
+    backward is K4).  Scores are summed over each head in f32 and
     the softmax over S is f32; LayerNorm (eps 1e-5) adds the memory as it
     was pulled, in the compute dtype on the table path.
 
@@ -350,6 +507,17 @@ class TransformerMemoryUpdater(nn.Module):
         kv = kv + tf.to(cd) @ kernel[dr:].to(cd)
         return mem, kv + self.w_kv.bias.to(cd)
 
+    def _rows_kv(self, pulled: Dict[str, torch.Tensor], ts: torch.Tensor):
+        """``(mem, kv)`` from pulled rows at ``ts``: K/V projected per row
+        as a sum of per-part products."""
+        mem, mail, mail_ts = pulled["mem"], pulled["mail"], \
+            pulled["mail_ts"]
+        if mail.dim() == 2:                                  # one slot
+            mail, mail_ts = mail[:, None], mail_ts[:, None]
+        tf = self.time_enc(ts[:, None] - mail_ts)
+        return mem, self.w_kv([mail,
+                               tf.to(self.compute_dtype or torch.float32)])
+
     def attend(self, mem: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
         """The attention step over the slots (``memory.py:684-708``):
         ``mem`` [n, dm] and ``kv`` [n, S, 2·dm] in the compute dtype;
@@ -372,18 +540,18 @@ class TransformerMemoryUpdater(nn.Module):
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         all_ts = mfg.all_ts()
         if isinstance(mem_input, DedupMemoryInput):
-            mem, kv = self._table_kv(mem_input.state, mem_input.uniq_nids,
-                                     mem_input.uniq_ts)
+            di = mem_input
+            if table_ok(di.state):
+                mem, kv = self._table_kv(di.state, di.uniq_nids, di.uniq_ts)
+            else:
+                mem, kv = self._rows_kv(prepare_input_at(
+                    di.state, di.uniq_nids,
+                    pull_dtype(di.state, self.compute_dtype)), di.uniq_ts)
         elif isinstance(mem_input, RawMemoryInput):
             mem, kv = self._table_kv(mem_input.state, mfg.all_nodes(),
                                      all_ts)
         else:
-            mem, mail = mem_input["mem"], mem_input["mail"]
-            mail_ts = mem_input["mail_ts"]
-            if mail.dim() == 2:                              # one slot
-                mail, mail_ts = mail[:, None], mail_ts[:, None]
-            tf = self.time_enc(all_ts[:, None] - mail_ts)
-            kv = self.w_kv([mail, tf.to(self.compute_dtype or torch.float32)])
+            mem, kv = self._rows_kv(mem_input, all_ts)
         h, dst_updated = _with_node_feats(self, mfg, mem_input,
                                           self.attend(mem, kv), node_feats)
         last_updated = {
@@ -411,7 +579,10 @@ def update_mem_mail(state: MemoryState,
     and its memory winner writes ``ptr + 1``, taking ``ptr`` from the
     node's interleaved row (``:834-875``): the cursor advances once per
     node per step.  Only winner rows are scattered, so the result is
-    deterministic."""
+    deterministic.  Values round to the storage dtype (bf16: to nearest
+    even).  A sharded state takes the global batch, the same on every
+    rank, and writes only the winners it owns: the winners, the slots and
+    the cursor are those of the whole batch, with no exchange."""
     b = last_updated_nid.shape[0] // 3
     src, dst = last_updated_nid[:b], last_updated_nid[b:2 * b]
     mem_src = last_updated_memory[:b]
@@ -431,18 +602,24 @@ def update_mem_mail(state: MemoryState,
 
     rows = unique_keep_last_mask(nid_inter, valid_inter).nonzero().squeeze(1)
     mrows = unique_keep_last_mask(nid_block, valid_block).nonzero().squeeze(1)
-    nodes, mnodes = nid_inter[rows], nid_block[mrows]
+    lo, n = 0, state.node_memory.shape[0]
+    if state.shard is not None:
+        lo = state.shard.lo
+        rows = rows[(nid_inter[rows] >= lo) & (nid_inter[rows] < lo + n)]
+        mrows = mrows[(nid_block[mrows] >= lo) & (nid_block[mrows] < lo + n)]
+    nodes, mnodes = nid_inter[rows] - lo, nid_block[mrows] - lo
+    vdt = state.node_memory.dtype
     S = state.mailbox_slots
     if S == 1:
-        state.mailbox[nodes] = mail[rows].float()
+        state.mailbox[nodes] = mail[rows].to(vdt)
         state.mailbox_ts[nodes] = mail_ts[rows]
     else:
-        ptr = state.mailbox_ptr[nid_inter.clamp(0, state.num_nodes - 1)]
+        ptr = state.mailbox_ptr[(nid_inter - lo).clamp(0, n - 1)]
         slot = ptr[rows] % S
-        state.mailbox[nodes, slot] = mail[rows].float()
+        state.mailbox[nodes, slot] = mail[rows].to(vdt)
         state.mailbox_ts[nodes, slot] = mail_ts[rows]
         # block row i is interleaved row 2 (i mod b) + i div b
         state.mailbox_ptr[mnodes] = ptr[2 * (mrows % b) + mrows // b] + 1
-    state.node_memory[mnodes] = last_updated_memory[mrows].float()
+    state.node_memory[mnodes] = last_updated_memory[mrows].to(vdt)
     state.node_memory_ts[mnodes] = last_updated_ts[mrows]
     return state

@@ -1,6 +1,6 @@
 """Multi-GPU training: process groups, data parallelism, the partitioned
-store with routed sampling, sharded feature tables and the trainer over
-them (counterpart of ``gnnflow_tpu/parallel``)."""
+store with routed sampling, sharded feature tables and node memory, and
+the trainer over them (counterpart of ``gnnflow_tpu/parallel``)."""
 from gnnflow_tpu_torch.parallel.dispatcher import dispatch_full_dataset
 from gnnflow_tpu_torch.parallel.dist_context import (DistContext, initialize,
                                                      owned_partitions,
@@ -11,7 +11,9 @@ from gnnflow_tpu_torch.parallel.dist_graph import (
     sample_hops_routed, sample_layer_replicated, sample_layer_routed)
 from gnnflow_tpu_torch.parallel.dp import DataParallel, shard_trainer
 from gnnflow_tpu_torch.parallel.kvstore import (ShardedFeatureStore,
-                                                ShardedTable)
+                                                ShardedTable,
+                                                shard_memory_state,
+                                                unshard_memory)
 from gnnflow_tpu_torch.parallel.partition import (get_partitioner,
                                                   partition_metrics)
 from gnnflow_tpu_torch.parallel.partitioned_trainer import PartitionedTrainer
@@ -23,5 +25,6 @@ __all__ = ["DistContext", "initialize", "shutdown", "spawn",
            "DistributedTemporalSampler", "sample_layer_routed",
            "sample_layer_replicated", "sample_hops_routed",
            "sample_hops_partitioned", "routed_load_stats",
-           "ShardedTable", "ShardedFeatureStore", "dispatch_full_dataset",
+           "ShardedTable", "ShardedFeatureStore", "shard_memory_state",
+           "unshard_memory", "dispatch_full_dataset",
            "PartitionedTrainer"]

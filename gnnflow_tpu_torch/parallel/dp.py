@@ -18,10 +18,12 @@ process per device:
   step, and the host reads nothing of it but the take.  This is not
   ``DistributedDataParallel``, whose mean of per-rank means would weigh
   a short rank's rows wrongly.
-- **Memory write-back.** Memory stays replicated.  The write-back keeps
-  the last occurrence in the single-device order ``[src_all; dst_all]``,
-  so each rank's rows are all-gathered and put back in that order before
-  one ``update_mem_mail``.
+- **Memory write-back.** The write-back keeps the last occurrence in the
+  single-device order ``[src_all; dst_all]``, so each rank's rows are
+  all-gathered and put back in that order before one ``update_mem_mail``,
+  which writes every row of replicated memory, or a rank's own rows of
+  sharded memory (:class:`~gnnflow_tpu_torch.parallel.
+  partitioned_trainer.PartitionedTrainer`).
 - **Knobs.** The memory dedup is switched off, with JAX's warning, and
   calibration is held from switching it on (``dp.py:35-51``).
 - **State.** The parameters are broadcast from rank 0 once, so Adam steps

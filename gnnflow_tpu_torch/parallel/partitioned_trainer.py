@@ -10,11 +10,16 @@ a different placement:
 - features come from :class:`~gnnflow_tpu_torch.parallel.kvstore.
   ShardedTable` s (``pull``), passed where the trainer takes its tables;
 - the batch is sliced over the ranks, and the gradients and the memory
-  write-back are handled as in :mod:`~gnnflow_tpu_torch.parallel.dp`.
+  write-back are handled as in :mod:`~gnnflow_tpu_torch.parallel.dp`;
+- memory (TGN, APAN) is sharded over the ranks where the group has more
+  than one (:meth:`_init_memory`, ``:104-112``;
+  :func:`~gnnflow_tpu_torch.parallel.kvstore.shard_memory_state`): a pull
+  is one routed exchange, and each rank writes back only the rows it
+  owns, from the global batch.
 
-Memory stays replicated.  The memory dedup is off unless asked for
-(``:74``); the layer dedup, the snapshot dedup and the block compaction
-stay (``_fast_paths``, ``:48-57``).
+The memory dedup is off unless asked for (``:74``), and runs over sharded
+memory and sharded node features alike; the layer dedup, the snapshot
+dedup and the block compaction stay (``_fast_paths``, ``:48-57``).
 
 The ranks stay in step by design: every path calls :meth:`_sample_layer`
 once per layer (each snapshot one routed exchange), also when one rank
@@ -23,15 +28,19 @@ valid roots joins every exchange with empty splits; the first-step
 calibration samples the global batch on every rank, so it picks the same
 knobs everywhere; the layer dedup's take of a step is the largest of the
 ranks' (one all-reduce with the gradients), so the recalibration rule
-reads the same histogram on every rank.
+reads the same histogram on every rank; a rank on the memory dedup and a
+rank on its fallback make the same memory and node-feature pulls, in the
+same order (``Trainer._mem_input``).
 """
 from __future__ import annotations
 
 from typing import List
 
 from gnnflow_tpu_torch.common import MFG
+from gnnflow_tpu_torch.models.memory import MemoryState
 from gnnflow_tpu_torch.parallel.dist_graph import LAYER_FNS, _sample_hops
 from gnnflow_tpu_torch.parallel.dp import DataParallel
+from gnnflow_tpu_torch.parallel.kvstore import shard_memory_state
 from gnnflow_tpu_torch.train import Trainer
 
 
@@ -47,14 +56,17 @@ class PartitionedTrainer(Trainer):
             raise ValueError(f"sampling_mode must be 'routed' or "
                              f"'replicated', got {sampling_mode!r}")
         kwargs.setdefault("dedup_factor", None)
-        if kwargs["dedup_factor"] is not None \
-                and getattr(model, "dim_node", 0) > 0:
-            raise NotImplementedError(
-                "the memory dedup over sharded node features is not ported "
-                "yet (ROADMAP.md, modules to port, item 12)")
         super().__init__(model, **kwargs)
         self.sampling_mode = sampling_mode
         self.dp = DataParallel(group)
+
+    def _init_memory(self, num_nodes: int) -> MemoryState:
+        """The trainer's memory, sharded over the group where it has more
+        than one rank."""
+        mem = super()._init_memory(num_nodes)
+        if self.dp.world_size > 1:
+            mem = shard_memory_state(mem, self.dp.group)
+        return mem
 
     def _layer(self, dg, roots, ts, fanout, snapshot_idx, u) -> MFG:
         return LAYER_FNS[self.sampling_mode](

@@ -33,7 +33,9 @@ batch, the cache fetches its features, and
 samples and fetches batch k+1 on a worker thread while batch k trains;
 ``--cache-transfer-dtype bfloat16`` sends missed rows as bf16;
 ``--features-on-host`` (needs ``--cache``) keeps the feature tables off
-the card.  After every epoch the cache's hit ratios are logged.  A store
+the card.  ``--memory-storage bfloat16`` stores TGN's and APAN's memory
+and mails in bf16 (``:80-82, 165``).  After every epoch the cache's hit
+ratios are logged.  A store
 that the data config places on the host (GDELT, MAG) is sampled on the
 CPU and needs ``--cache``.  One flag is new: ``--device`` (``cuda`` by
 default, ``cpu`` for the plain PyTorch path).  Options the port lacks
@@ -131,7 +133,10 @@ def make_parser() -> argparse.ArgumentParser:
                              "feed the model through the cache only "
                              "(requires --cache)")
     parser.add_argument("--memory-storage", default="float32",
-                        choices=["float32", "bfloat16"])
+                        choices=["float32", "bfloat16"],
+                        help="store node memory and mails in bf16: half "
+                             "the memory table's bytes, values rounded to "
+                             "bf16")
     parser.add_argument("--remat-attention", action="store_true")
     parser.add_argument("--use-scan", action="store_true")
     parser.add_argument("--device", default="cuda",
@@ -144,8 +149,6 @@ def _refuse_unported(parser, args) -> None:
     """Options of the JAX script that the port lacks: an error naming the
     ROADMAP.md item, never a silent default."""
     unported = [
-        (args.memory_storage != "float32", "--memory-storage bfloat16",
-         "item 14"),
         (args.remat_attention, "--remat-attention", "item 14"),
         (args.use_scan, "--use-scan", "item 14"),
     ]
@@ -248,7 +251,8 @@ def main(argv=None, checkpoint_path: Optional[str] = None) -> dict:
     batch_size = model_config["batch_size"]
     batch_size -= batch_size % args.num_devices
     lr = args.lr * math.sqrt(args.num_devices)
-    trainer = Trainer(model, lr=lr, device=device, **trainer_kwargs)
+    trainer = Trainer(model, lr=lr, device=device,
+                      memory_storage=args.memory_storage, **trainer_kwargs)
     # with --features-on-host the tables never reach the card
     efs, nfs = (None if t is None or args.features_on_host else
                 torch.from_numpy(np.asarray(t, np.float32)).to(device)

@@ -14,9 +14,15 @@ is checked across the ranks) and ingests only the partition it owns, then
 trains as :mod:`offline_edge_prediction_partitioned` does, one partition
 per rank.  ``--max-steps`` cuts each epoch's train and eval batches (smoke
 runs); rank 0 prints ``RESULT epoch=.. loss=.. ap=..`` after each epoch.
-``--cache`` (features kept in the sharded tables behind a cache) is not
-ported yet (ROADMAP.md, modules to port, item 12: the cache's distributed
-master).
+Memory is sharded over the ranks.
+
+``--cache LRUCache|LFUCache|FIFOCache`` (``:159-200, 224-230, 278-297``):
+the features stay in the sharded tables and reach the model through a
+cache on each rank, whose misses are routed pulls (the reference's
+KV-backed cache); every rank replays the whole stream into a local store,
+samples each batch on the host and takes the prefetched step on the same
+inputs as every other rank; rank 0 logs ``cache node hit .. edge hit ..``
+after each epoch.
 """
 from __future__ import annotations
 
@@ -45,7 +51,11 @@ def make_parser() -> argparse.ArgumentParser:
                         choices=["hash", "roundrobin"],
                         help="deterministic and state-free, so every "
                              "process derives the same table")
-    parser.add_argument("--cache", default=None)
+    parser.add_argument("--cache", default=None,
+                        choices=["LRUCache", "LFUCache", "FIFOCache"],
+                        help="features stay in the sharded tables and "
+                             "reach the model through a cache whose misses "
+                             "are routed pulls")
     parser.add_argument("--edge-cache-ratio", type=float, default=0.2)
     parser.add_argument("--node-cache-ratio", type=float, default=0.2)
     parser.add_argument("--synthetic-edges", type=int, default=50_000)
@@ -60,9 +70,6 @@ def main(argv=None) -> Optional[dict]:
     train_partitioned`'s dict."""
     parser = make_parser()
     args = parser.parse_args(argv)
-    if args.cache:
-        parser.error("--cache: the cache over sharded feature tables is not "
-                     "ported yet (ROADMAP.md, modules to port, item 12)")
     joined = dist.is_initialized()
     ctx = dist_context.initialize(
         args.process_id, args.num_processes, args.device,

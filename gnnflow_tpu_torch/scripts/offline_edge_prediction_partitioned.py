@@ -10,7 +10,8 @@ one per rank), each rank ingests the partitions it owns, the feature
 tables are sharded over the ranks, and
 :class:`~gnnflow_tpu_torch.parallel.partitioned_trainer.PartitionedTrainer`
 trains data parallel over the partitioned store with routed (the default)
-or replicated sampling.  The batch is rounded down to a multiple of the
+or replicated sampling.  Memory (TGN, APAN) is sharded over the ranks
+(``:139-141``).  The batch is rounded down to a multiple of the
 ranks and the learning rate is ``lr·sqrt(ranks)``.  The partition sizes
 and the load factor and edge cut are logged once, and every epoch logs
 the routed load's CV (the per-owner root counts of each batch), the layer
@@ -36,19 +37,23 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from gnnflow_tpu_torch.cache import CACHES
 from gnnflow_tpu_torch.config import get_default_config
 from gnnflow_tpu_torch.data import (DstRandEdgeSampler, get_batches,
                                     load_dataset, load_feat,
                                     make_synthetic_dataset)
+from gnnflow_tpu_torch.dynamic_graph import build_dynamic_graph
 from gnnflow_tpu_torch.models import memory as memory_lib
 from gnnflow_tpu_torch.models.factory import build_model
 from gnnflow_tpu_torch.parallel import dist_context
 from gnnflow_tpu_torch.parallel.dispatcher import dispatch_full_dataset
 from gnnflow_tpu_torch.parallel.dist_graph import (PartitionedDynamicGraph,
                                                    routed_load_stats)
+from gnnflow_tpu_torch.parallel.kvstore import shard_memory_state
 from gnnflow_tpu_torch.parallel.partition import (get_partitioner,
                                                   partition_metrics)
 from gnnflow_tpu_torch.parallel.partitioned_trainer import PartitionedTrainer
+from gnnflow_tpu_torch.temporal_sampler import TemporalSampler
 from gnnflow_tpu_torch.utils import average_precision_score, roc_auc_score
 
 STRATEGIES = ["hash", "roundrobin", "edgecount", "timestampsum",
@@ -116,13 +121,47 @@ def _configs(args):
     return model_config, data_config
 
 
+def _cached_stepper(args, trainer, data_config, full, store, num_nodes,
+                    trainer_kwargs, device):
+    """The multiprocess script's cache path
+    (``scripts/offline_edge_prediction_multiprocess.py:159-200``): every
+    rank replays the whole stream into a local store and samples it on
+    the host (``TemporalSampler``); the feature masters stay the sharded
+    tables behind the cache, whose misses are routed pulls.  Returns
+    ``(cache, step)``: ``step(state, batch, train)`` is the prefetched
+    step on inputs that are the same on every rank (the JAX run places
+    them replicated), so it runs unsliced."""
+    graph = build_dynamic_graph(**data_config)
+    for lo in range(0, len(full), args.ingestion_batch_size):
+        chunk = full[lo: lo + args.ingestion_batch_size]
+        graph.add_edges(chunk.src, chunk.dst, chunk.time, chunk.eid,
+                        add_reverse=data_config["undirected"])
+    sampler = TemporalSampler(graph, device=device, **trainer_kwargs)
+    cache = CACHES[args.cache](
+        args.edge_cache_ratio, args.node_cache_ratio, num_nodes, len(full),
+        store.node_table, store.edge_table, device=device)
+    cache.init_cache()
+
+    def step(state, batch, train):
+        mfgs = sampler.sample(batch.target_nodes, batch.ts)
+        nfs, efs = cache.fetch_feature(mfgs, batch.eids)
+        return trainer.train_step_prefetched(
+            state, mfgs, nfs, efs, cache.target_edge_features, batch,
+            train=train)
+
+    return cache, step
+
+
 def train_partitioned(args, ctx, num_partitions: int, num_edges: int,
                       max_steps: int = 0, check_uniform: bool = False,
                       result_lines: bool = False) -> dict:
     """Dispatch, build and train over the partitioned store in the running
-    group ``ctx`` (None: one rank, no group); every rank runs it.
+    group ``ctx`` (None: one rank, no group); every rank runs it.  With
+    ``args.cache`` (the multiprocess script's ``--cache``) the steps go
+    through the cache over the sharded tables (:func:`_cached_stepper`).
     Returns ``{"partition_sizes", "load_cv", "loss", "val_ap",
-    "val_auc"}`` (per epoch where a list)."""
+    "val_auc", "cache_node_hit", "cache_edge_hit"}`` (per epoch where a
+    list; the hit ratios with the cache only)."""
     rank = 0 if ctx is None else ctx.rank
     world = 1 if ctx is None else ctx.world_size
     device = torch.device(args.device) if ctx is None else ctx.device
@@ -160,25 +199,39 @@ def train_partitioned(args, ctx, num_partitions: int, num_edges: int,
                                  device=device, **trainer_kwargs)
     dg = pg.device_graph(device)
     state = trainer.init_state(num_nodes, seed=args.seed)
+    if state.memory is not None:
+        state.memory = shard_memory_state(state.memory, trainer.dp.group)
     pt = pg.partition_table
+    cache = step = None
+    if getattr(args, "cache", None):
+        cache, step = _cached_stepper(args, trainer, data_config, full,
+                                      store, num_nodes, trainer_kwargs,
+                                      device)
+        logging.info("cache mem size: %.2f MB", cache.get_mem_size() / 1e6)
 
     train_neg = DstRandEdgeSampler(train_data.dst, seed=args.seed)
     val_neg = DstRandEdgeSampler(full.dst, seed=args.seed + 1)
     out = {"partition_sizes": sizes, "load_cv": [], "loss": [],
-           "val_ap": [], "val_auc": []}
+           "val_ap": [], "val_auc": [], "cache_node_hit": [],
+           "cache_edge_hit": []}
     for epoch in range(args.epoch):
         t0 = time.time()
         total, cvs, loss = 0, [], None
         if epoch > 0 and state.memory is not None:
             memory_lib.reset_memory(state.memory)
+        if cache is not None:
+            cache.reset()
         for i, batch in enumerate(get_batches(train_data, batch_size,
                                               train_neg)):
-            if args.sampling_mode == "routed":
-                cvs.append(routed_load_stats(pt, batch.target_nodes,
-                                             num_partitions)["cv"])
-            state, loss, _, _ = trainer.train_step(
-                state, dg, store.edge_table, batch,
-                node_feats=store.node_table)
+            if cache is not None:
+                state, loss, _, _ = step(state, batch, True)
+            else:
+                if args.sampling_mode == "routed":
+                    cvs.append(routed_load_stats(pt, batch.target_nodes,
+                                                 num_partitions)["cv"])
+                state, loss, _, _ = trainer.train_step(
+                    state, dg, store.edge_table, batch,
+                    node_feats=store.node_table)
             total += 3 * batch.num_valid
             if max_steps and i + 1 >= max_steps:
                 break
@@ -203,9 +256,12 @@ def train_partitioned(args, ctx, num_partitions: int, num_edges: int,
         scores, labels = [], []
         for i, batch in enumerate(get_batches(val_data, batch_size,
                                               val_neg)):
-            state, _, pos, neg = trainer.eval_step(
-                state, dg, store.edge_table, batch,
-                node_feats=store.node_table)
+            if cache is not None:
+                state, _, pos, neg = step(state, batch, False)
+            else:
+                state, _, pos, neg = trainer.eval_step(
+                    state, dg, store.edge_table, batch,
+                    node_feats=store.node_table)
             k = batch.num_valid
             scores += [pos[:k].float().cpu().numpy(),
                        neg[:k].float().cpu().numpy()]
@@ -219,6 +275,11 @@ def train_partitioned(args, ctx, num_partitions: int, num_edges: int,
         out["loss"].append(last)
         out["val_ap"].append(ap)
         out["val_auc"].append(auc)
+        if cache is not None:
+            logging.info("cache node hit %.3f edge hit %.3f",
+                         cache.cache_node_ratio, cache.cache_edge_ratio)
+            out["cache_node_hit"].append(cache.cache_node_ratio)
+            out["cache_edge_hit"].append(cache.cache_edge_ratio)
         if result_lines and rank == 0:
             print(f"RESULT epoch={epoch} loss={last:.6f} ap={ap:.6f}",
                   flush=True)

@@ -135,10 +135,7 @@ def _gather_rows(table, ids: torch.Tensor, valid: torch.Tensor,
     a collective)."""
     if table is None:
         return None
-    if hasattr(table, "pull"):
-        rows = table.pull(ids.reshape(-1))
-    else:
-        rows = table[ids.reshape(-1).clamp(0, table.shape[0] - 1)]
+    rows = memory_lib.table_rows(table, ids.reshape(-1))
     if dtype is not None:
         rows = rows.to(dtype)
     rows = rows.reshape(ids.shape + (rows.shape[1],))
@@ -299,14 +296,17 @@ class Trainer:
     :meth:`calibrate` measures the stream, which the first
     :meth:`train_step` does; the dedups stay off until then.  An explicit
     value, ``None`` included, is a decision calibration keeps
-    (``train.py:165-218, 271-286``)."""
+    (``train.py:165-218, 271-286``).  ``memory_storage="bfloat16"`` stores
+    memory and mails in bf16 (``train.py:264, 396``): half the memory
+    table's bytes, values rounded to bf16 at the write-back."""
 
     def __init__(self, model: DGNN, *, fanouts, sample_strategy="recent",
                  num_snapshots: int = 1, snapshot_time_window: float = 0.0,
                  prop_time: bool = False, lr: float = 1e-4,
                  compact_factor="auto", dedup_factor="auto",
                  model_compact="auto", layer_dedup="auto",
-                 apan_table="auto", is_static: bool = False, device="cuda"):
+                 apan_table="auto", is_static: bool = False,
+                 memory_storage: str = "float32", device="cuda"):
         self.fanouts = tuple(int(f) for f in fanouts)
         if len(self.fanouts) != model.num_layers:
             raise ValueError(f"{len(self.fanouts)} fanouts for a model of "
@@ -317,6 +317,10 @@ class Trainer:
         if int(num_snapshots) != model.num_snapshots:
             raise ValueError(f"{num_snapshots} snapshots for a model of "
                              f"{model.num_snapshots}")
+        if memory_storage not in memory_lib.STORAGES:
+            raise ValueError(f"memory_storage must be 'float32' or "
+                             f"'bfloat16', got {memory_storage!r}")
+        self.memory_storage = memory_storage
         self.strategy = sample_strategy
         self.num_snapshots = int(num_snapshots)
         self.window = float(snapshot_time_window)
@@ -379,9 +383,7 @@ class Trainer:
         ``SAMPLE_SEED_OFFSET + seed``, on the trainer's device."""
         memory = None
         if self.model.use_memory:
-            memory = memory_lib.init_memory(
-                num_nodes, self.model.dim_memory, self.model.dim_edge,
-                self.device, self.model.mailbox_slots)
+            memory = self._init_memory(num_nodes)
         return TrainState(
             memory=memory,
             optimizer=torch.optim.Adam(self.model.parameters(), lr=self.lr,
@@ -390,6 +392,14 @@ class Trainer:
             sample_gen=torch.Generator(device=self.device).manual_seed(
                 SAMPLE_SEED_OFFSET + seed),
             tier_takes=[0] * 4 if self._layer_dedup_ok() else None)
+
+    def _init_memory(self, num_nodes: int) -> memory_lib.MemoryState:
+        """The memory state of :meth:`init_state`, in ``memory_storage``
+        (``train.py:390-396``); :class:`~gnnflow_tpu_torch.parallel.
+        partitioned_trainer.PartitionedTrainer` shards it."""
+        return memory_lib.init_memory(
+            num_nodes, self.model.dim_memory, self.model.dim_edge,
+            self.device, self.model.mailbox_slots, self.memory_storage)
 
     def _dedup_cap(self, num_all: int) -> int:
         return dedup_cap(self.dedup_factor, num_all)
@@ -540,10 +550,18 @@ class Trainer:
         compact input, with the node-feature table, when ``dedup`` and the
         factor are set and the batch's unique pairs fit its cap; else the
         raw state for the transformer updater's table path
-        (``apan_table``); else the per-instance pull, in bf16 under bf16
-        compute when the node table is small next to the instance count
-        (``:851-858``; timestamps stay f32).  With ``dedup``, records the
-        unique count in ``state.dedup_n_uniq``."""
+        (``apan_table``; not over a sharded or bf16-stored state, which
+        takes the per-instance pull, as JAX's packed state does,
+        ``:842``); else the per-instance pull, in bf16 under bf16 compute
+        when the node table is small next to the instance count or is
+        stored in bf16 (``:851-858``; timestamps stay f32).  With
+        ``dedup``, records the unique count in ``state.dedup_n_uniq``.
+
+        Over sharded memory or node features every pull is a collective,
+        and ranks may take different branches here (each counts its own
+        slice's pairs): both branches pull memory once, then node features
+        once (the dedup's inside the updater), so the ranks stay in
+        step."""
         memory = state.memory
         if dedup:
             state.dedup_n_uniq = None
@@ -558,10 +576,12 @@ class Trainer:
                     state=memory, uniq_nids=uniq_nid, uniq_ts=uniq_ts,
                     inv=inv, sidx=sidx, rank_sorted=rank_sorted,
                     node_feats=node_feats)
-        if self.apan_table and self.model.memory_updater == "transformer":
+        if self.apan_table and self.model.memory_updater == "transformer" \
+                and memory_lib.table_ok(memory):
             return memory_lib.RawMemoryInput(memory)
         if self.model.compute_dtype == "bfloat16" \
-                and 3 * memory.num_nodes <= mfg.num_all:
+                and (memory.storage == "bfloat16"
+                     or 3 * memory.num_nodes <= mfg.num_all):
             return memory_lib.prepare_input(memory, mfg, torch.bfloat16)
         return memory_lib.prepare_input(memory, mfg)
 

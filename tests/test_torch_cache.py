@@ -236,14 +236,16 @@ def test_static_cache_without_sampler_warns_as_jax(stream, caplog):
 
 
 def test_cache_refuses_what_it_lacks(stream):
-    class Sharded:
-        shape = (10, 4)
-
-        def pull(self, ids):
-            raise AssertionError
-
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cache.LRUCache(0.2, 0.2, 10, 10, None, Sharded(), device="cpu")
+    # a master with ``pull`` (a sharded table) is taken, and its misses
+    # come in f32 whatever the transfer dtype, as JAX's sharded master
+    from gnnflow_tpu_torch.parallel import ShardedTable
+    ef = stream["ef"][:10]
+    c = cache.LRUCache(0.2, 0.2, 10, 10, None, ShardedTable(ef),
+                       transfer_dtype="bfloat16", device="cpu")
+    assert c.edge_cache.distributed and c.edge_cache._tdt == torch.float32
+    ids = np.array([9, 0, 4])
+    assert torch.equal(c.edge_cache._pull(ids, torch.bfloat16),
+                       torch.from_numpy(ef[ids]))
     with pytest.raises(ValueError):
         cache.LRUCache(0.2, 0.2, 10, 10, None, stream["ef"],
                        transfer_dtype="float16", device="cpu")

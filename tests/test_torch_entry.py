@@ -167,13 +167,31 @@ def test_build_model_apan():
     assert mem.mailbox_ts.shape == (30, 10)
 
 
-@pytest.mark.parametrize("flags", [
-    ["--memory-storage", "bfloat16"], ["--remat-attention"],
-    ["--use-scan"]])
+@pytest.mark.parametrize("flags", [["--remat-attention"], ["--use-scan"]])
 def test_entry_refuses_unported_flags(flags, capsys):
     with pytest.raises(SystemExit):
         entry.main(["--model", "TGN", "--data", "SYNTHETIC", *flags])
     assert "ROADMAP.md" in capsys.readouterr().err
+
+
+def test_entry_passes_memory_storage(monkeypatch):
+    """``--memory-storage bfloat16`` reaches the trainer, which stores
+    memory in bf16 (held against JAX in tests/test_torch_distmem.py)."""
+    seen = {}
+
+    class Built(Exception):
+        pass
+
+    def trainer(model, **kwargs):
+        seen.update(kwargs)
+        raise Built
+
+    monkeypatch.setattr(entry, "Trainer", trainer)
+    with pytest.raises(Built):
+        entry.main(["--model", "TGN", "--data", "SYNTHETIC",
+                    "--synthetic-edges", "500", "--memory-storage",
+                    "bfloat16", "--device", "cpu"])
+    assert seen["memory_storage"] == "bfloat16"
 
 
 def test_entry_trains_two_epochs_on_cpu(tmp_path, caplog):

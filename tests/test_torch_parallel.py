@@ -17,7 +17,8 @@ training over two gloo ranks, against the JAX package.
   meanwhile).  It runs 3 f32 TGN train steps at dropout 0, the last batch
   padded with all its valid rows on rank 0, data parallel
   (``shard_trainer``) and on ``PartitionedTrainer`` (routed, P = 4 over
-  W = 2): losses, logits, parameters and memory held to JAX's ``Trainer``
+  W = 2, memory sharded over the ranks and gathered for the check):
+  losses, logits, parameters and memory held to JAX's ``Trainer``
   within 1e-5 (f32 sum order; timestamps exact); TGAT on the layer dedup
   in a step where rank 0 takes the lowest tier and rank 1 falls back,
   whose losses equal the padded run's within 1e-6; ``ShardedTable``'s
@@ -44,7 +45,7 @@ from gnnflow_tpu_torch.parallel import (DistributedTemporalSampler,
                                         get_partitioner, partition_metrics,
                                         sample_hops_partitioned,
                                         sample_hops_routed, shard_trainer,
-                                        spawn)
+                                        spawn, unshard_memory)
 from gnnflow_tpu_torch.temporal_sampler import TemporalSampler
 from gnnflow_tpu_torch.train import Trainer
 
@@ -287,7 +288,8 @@ def _tgn_run(kind):
         state, loss, pos, neg = trainer.train_step(state, dg, table, b)
         steps.append((float(loss), pos.numpy(), neg.numpy(),
                       _flat(flax_param_tree(model))))
-    return {"steps": steps, "memory": _memory(state.memory)}
+    # PartitionedTrainer shards memory over the ranks: the whole of it
+    return {"steps": steps, "memory": _memory(unshard_memory(state.memory))}
 
 
 def _tgat_tiers(ctx):
