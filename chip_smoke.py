@@ -37,7 +37,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
 7. entry: two epochs of the port's offline training script
    (``gnnflow_tpu_torch.scripts.offline_edge_prediction``) on its
    synthetic stream, with validation and test AP.
-8. slice vs itself (run after phase 17, while phase 18's harness runs
+8. slice vs itself (run after phase 18, while phase 19's harness runs
    beside it: it times nothing): the same batches of a small stream on
    the CPU (plain versions) and on the card (kernels), same weights: eval
    logits and memory, then train steps at dropout 0 (losses, gradients,
@@ -157,7 +157,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
 17. storage: TGN with bf16 memory storage beside f32 storage
    (``phase_storage``'s docstring): ms/step, the memory's bytes, peak
    memory, and 3 f32-compute steps within ``STORAGE_TOL``.
-18. parity: the port's parity harness, ``parity_run --smoke
+18. variants: the opt-in variants at TGN's REDDIT defaults
+   (``phase_variants``'s docstring): three negatives per edge, memory
+   over two layers, the GRU gate table, remat, the factorized attention,
+   the scanned steps and ``--use-scan``, the updaters without time
+   encoding, a REPLACE store; and K1, K3 and K4 at their new shapes.
+19. parity: the port's parity harness, ``parity_run --smoke
    --smoke-models TGN`` with its two host cells, started as a subprocess
    before phase 8 (each cell a subprocess of the training script on the
    card), then without data: the verdicts and each cell's AP.
@@ -755,11 +760,12 @@ def reddit_stream(torch):
                 ingest_s=t_ingest)
 
 
-def _take(edges, batch_size, neg_dst, count):
+def _take(edges, batch_size, neg_dst, count, ratio=1):
     from gnnflow_tpu_torch.data import DstRandEdgeSampler, get_batches
     batches = []
     for b in get_batches(edges, batch_size,
-                         DstRandEdgeSampler(neg_dst, seed=1)):
+                         DstRandEdgeSampler(neg_dst, seed=1),
+                         neg_sample_ratio=ratio):
         batches.append(b)
         if len(batches) == count:
             break
@@ -4290,7 +4296,7 @@ def phase_storage(torch, kernels, stream):
 
 
 def start_parity():
-    """Start phase 18's smoke run of the port's parity harness
+    """Start phase 19's smoke run of the port's parity harness
     (``gnnflow_tpu_torch.scripts.parity_run --smoke --smoke-models TGN``)
     as a subprocess, which runs each cell as a subprocess of the training
     script on the card; the phases that time nothing run beside it.
@@ -4364,6 +4370,440 @@ def phase_parity(run):
     return res
 
 
+VARIANT_RATIO = 3      # negatives per edge on the [variants] ratio path
+# f32 agreement of the variants with the default path from one state:
+# the GRU table against K1 per instance and the factorized attention
+# against K3 reorder f32 sums (losses relative, parameters and memory
+# absolute, logits absolute); remat and the scanned steps run the same
+# kernels on the same inputs, so they are held bit for bit
+VARIANT_TOL = dict(loss_rel=1e-5, param=1e-5, memory=1e-4, logits=1e-4)
+
+
+def _tgn_variant(compute_dtype="bfloat16", fanouts=(10,), ratio=1,
+                 dedup=None, trainer_kw=None, **over):
+    """TGN at the REDDIT defaults (``TGN``, bench.py:262-267) with ``over``
+    changed (``num_layers`` from ``fanouts``), ``ratio`` negatives per
+    edge, seeded weights, and its trainer (memory dedup ``dedup``)."""
+    from gnnflow_tpu_torch.models.dgnn import DGNN
+    from gnnflow_tpu_torch.train import Trainer
+    model = DGNN(dim_edge=172, compute_dtype=compute_dtype, seed=0,
+                 device="cuda", neg_sample_ratio=ratio,
+                 **{**TGN, "num_layers": len(fanouts), **over})
+    return model, Trainer(model, fanouts=list(fanouts), lr=1e-4,
+                          device="cuda", neg_sample_ratio=ratio,
+                          dedup_factor=dedup, **(trainer_kw or {}))
+
+
+def _variant_path(torch, kernels, name, step, batches, expected):
+    """``step`` over ``batches`` with the launch counts from 0 and the
+    peak memory from the start; ``expected(outs)`` gives the launches
+    each kernel must have made.  Returns the outputs and the path's
+    numbers (medians of CUDA events between steps and of the host
+    clock)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(kernels)
+    outs, dev_ms, host_ms = _timed_steps(torch, step, batches)
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    losses = torch.stack([o[0] for o in outs]).float()
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"[variants] {name}: a non-finite loss")
+    _check_launches(launches, expected(outs), f"[variants] {name}")
+    return outs, dict(steps=len(batches), ms=statistics.median(dev_ms),
+                      host_ms=statistics.median(host_ms),
+                      max_memory_allocated_mib=
+                      torch.cuda.max_memory_allocated() / 2 ** 20,
+                      mean_loss=float(losses.mean()), launches=launches)
+
+
+def _k(k1=0, k2=0, k3=0, k4=0):
+    return lambda _outs: _expect(k1, k2, k3, k4)
+
+
+def _k1_at(torch, w, n):
+    """K1 against its plain version at ``n`` rows of the main path's
+    widths (bf16 memory and mails as the bf16 pull gives them, dts up to
+    2.7e6), with K1's tolerance of phase 3; times the kernel, the plain
+    version and ``torch.gru_cell``."""
+    from gnnflow_tpu_torch.ops.gru_fused import (gru_memory_fused,
+                                                 gru_memory_fused_ref)
+    f, dr, dt = 100, 372, 100
+    ki = torch.randn(dr + dt, 3 * f, **w) * 0.05
+    kh = torch.randn(f, 3 * f, **w) * 0.05
+    bi, bh = torch.randn(3 * f, **w) * 0.05, torch.randn(3 * f, **w) * 0.05
+    tw = (1.0 / 10 ** torch.linspace(0, 9, dt, device="cuda")).float()
+    tb = torch.randn(dt, **w) * 0.1
+    dts = torch.rand(n, **w) * 1e3
+    dts[::7] = torch.rand(dts[::7].shape, **w) * 2.7e6
+    mem = (torch.randn(n, f, **w) * 0.5).bfloat16()
+    mail = (torch.randn(n, dr, **w) * 0.5).bfloat16()
+    args = (mem, mail, dts, ki.bfloat16(), bi, kh.bfloat16(), bh, tw, tb,
+            "bfloat16")
+    got = gru_memory_fused(*args)
+    torch.cuda.synchronize()
+    err = (got - gru_memory_fused_ref(*args)).abs().max().item()
+    tol = 2e-3
+    if not err <= tol or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"K1 at {n} rows: max_abs_err {err} > {tol}")
+    nbytes = _nbytes(mem, mail, dts, got) + _nbytes(*args[3:9])
+    bound, by = _bound(nbytes, 2.0 * n * ((dr + dt) * 3 * f + f * 3 * f),
+                       "bfloat16")
+    ms = cuda_ms(torch, lambda: gru_memory_fused(*args), iters=10)
+    out = dict(n=n, max_abs_err=err, tol=tol, ms=ms,
+               plain_ms=cuda_ms(torch, lambda: gru_memory_fused_ref(*args),
+                                iters=5),
+               library_ms=_gru_library_ms(torch, mem, mail, dts, ki, kh, bi,
+                                          bh, tw, tb, torch.bfloat16),
+               bound_ms=bound, bound_by=by, share=bound / ms)
+    del got
+    return out
+
+
+def phase_variants(torch, kernels, stream):
+    """The opt-in variants at the REDDIT defaults of TGN (bf16, batch
+    4000), each path with its launch check: TGN at three negatives per
+    edge (20,000 roots, 220,000 memory rows: eval, train at the default
+    dropouts with the default trainer, at attention dropout 0, on the
+    memory dedup at 0.35); TGN with memory over two layers (fanouts [10,
+    10]: 1,452,000 innermost rows pulled from memory; eval, train, peak
+    memory); the GRU gate table against the per-instance step; remat
+    against the plain step (two layers, attention dropout 0); the
+    factorized attention's eval against K3's; ``train_steps_scan`` against
+    the per-step loop, and one epoch of the script with ``--use-scan``;
+    one train step of each memory updater without time encoding; a
+    REPLACE store's ingestion beside INSERT's.  The f32 checks run each
+    variant and its default path from one state (``VARIANT_TOL``).  Then
+    K1 at 220,000 and 1,452,000 rows, K3 at the ratio path's 20,000 and
+    the inner layer's 132,000 rows and K4 at the ratio path's dedup (each
+    on a sample of stream batch ``PROBE_BATCH``) against their plain
+    versions."""
+    import numpy as np
+    from gnnflow_tpu_torch.dynamic_graph import DynamicGraph
+    from gnnflow_tpu_torch.ops import _build
+    from gnnflow_tpu_torch.ops.attention_fused import \
+        neighborhood_attention_autograd as attention_autograd
+    from gnnflow_tpu_torch.ops.dedup import dedup_instances
+    from gnnflow_tpu_torch.ops.sampling import sample_hops
+    from gnnflow_tpu_torch.scripts import offline_edge_prediction as entry
+    from gnnflow_tpu_torch.train import dedup_cap
+    g, dg, ef, train, full = stream["g"], stream["dg"], stream["ef"], \
+        stream["train"], stream["full"]
+    num_nodes = g.max_vertex_id() + 1
+    B, r, warm, runs, extra = 4000, VARIANT_RATIO, 2, 10, 5
+    w = dict(device=torch.device("cuda"),
+             generator=torch.Generator(device="cuda").manual_seed(3))
+    out, launches, rows = {}, {}, {}
+
+    def trained(trainer, state):
+        return lambda b: trainer.train_step(state, dg, ef, b)[1:]
+
+    def evaluated(trainer, state):
+        return lambda b: trainer.eval_step(state, dg, ef, b)[1:]
+
+    def fast(trainer, state, num_all):
+        """A train step that also says whether it took the dedup."""
+        def step(b):
+            res = trainer.train_step(state, dg, ef, b)[1:]
+            return res + (_fast_steps(trainer, state, num_all),)
+        return step
+
+    # ---- TGN at three negatives per edge -----------------------------
+    num_all = (2 + r) * B * 11
+    tb = _take(train, B, train.dst, warm + runs + extra, ratio=r)
+    eb = _take(full, B, full.dst, warm + runs, ratio=r)
+    model, trainer = _tgn_variant(ratio=r)
+    state = trainer.init_state(num_nodes, seed=0)
+    for b in eb[:warm]:
+        trainer.eval_step(state, dg, ef, b)
+    outs, ev = _variant_path(torch, kernels, "ratio eval",
+                             evaluated(trainer, state), eb[warm:],
+                             _k(k1=runs, k3=runs))
+    if not all(o[2].shape == (r * B,) for o in outs):
+        raise AssertionError("[variants] ratio eval: negative logits are "
+                             "not [r·B]")
+    model, trainer = _tgn_variant(ratio=r, dedup="auto")
+    state = trainer.init_state(num_nodes, seed=0)
+    for b in tb[:warm]:
+        trainer.train_step(state, dg, ef, b)
+    _, tr = _variant_path(torch, kernels, "ratio train",
+                          fast(trainer, state, num_all),
+                          tb[warm:warm + runs],
+                          lambda o: _expect(runs, runs, 0,
+                                            sum(x[-1] for x in o)))
+    tr["calibration"] = trainer.calibration
+    model, trainer = _tgn_variant(ratio=r, att_dropout=0.0)
+    state = trainer.init_state(num_nodes, seed=0)
+    bwd0 = attention_autograd.backward_calls
+    _, tr0 = _variant_path(torch, kernels, "ratio train att_dropout 0",
+                           trained(trainer, state), tb[-extra:],
+                           _k(extra, extra, extra))
+    if attention_autograd.backward_calls - bwd0 != extra:
+        raise AssertionError("[variants] ratio: K3's backward did not run "
+                             "once a step at attention dropout 0")
+    model, trainer = _tgn_variant(ratio=r, dedup=0.35)
+    state = trainer.init_state(num_nodes, seed=0)
+    _, dd = _variant_path(torch, kernels, "ratio dedup",
+                          fast(trainer, state, num_all), tb[:runs],
+                          lambda o: _expect(runs, runs, 0,
+                                            sum(x[-1] for x in o)))
+    if dd["launches"]["sorted_segment_sum"] < 1:
+        raise AssertionError("[variants] ratio dedup: no step fit the cap")
+    launches.update(variants_ratio_eval=ev["launches"],
+                    variants_ratio_train=tr["launches"],
+                    variants_ratio_att_dropout0=tr0["launches"],
+                    variants_ratio_dedup=dd["launches"])
+    out["ratio"] = dict(ratio=r, roots=(2 + r) * B, memory_rows=num_all,
+                        eval=ev, train=tr, train_att_dropout0=tr0, dedup=dd)
+    _log("variants", path="ratio", **out["ratio"])
+    # K3's mask and K4's segments from a mid-stream batch (the first
+    # batches' histories are short)
+    probe = _take(full, B, full.dst, PROBE_BATCH, ratio=r)[-1]
+    m = sample_hops(dg, torch.from_numpy(probe.target_nodes).cuda(),
+                    torch.from_numpy(probe.ts).cuda(), fanouts=[10])[0][0]
+    rows["neighborhood_attention"] = {"ratio_B20000": _kernel_k3(
+        torch, w, m.nbr_mask.contiguous(), torch.bfloat16, 2 ** -6, 1e-5)}
+    cap = dedup_cap(0.35, m.num_all)
+    *_, n_uniq, _, seg = dedup_instances(m.all_nodes(), m.all_ts(),
+                                         m.all_mask(), cap)
+    rows["sorted_segment_sum"] = {"ratio_dedup": dict(
+        L=m.num_all, cap=cap, **_k4_check(torch, w, seg, cap, int(n_uniq),
+                                          100))}
+    rows["gru_memory_fused"] = {"ratio_N220000": _k1_at(torch, w, num_all)}
+    del model, trainer, state, outs, m, seg
+
+    # ---- memory over two layers --------------------------------------
+    num_all2 = 3 * B * 11 * 11
+    gb = _take(train, B, train.dst, warm + runs)
+    model, trainer = _tgn_variant(fanouts=(10, 10))
+    state = trainer.init_state(num_nodes, seed=0)
+    eb2 = _take(full, B, full.dst, warm + 5)
+    for b in eb2[:warm]:
+        trainer.eval_step(state, dg, ef, b)
+    _, ev2 = _variant_path(torch, kernels, "two-layer eval",
+                           evaluated(trainer, state), eb2[warm:],
+                           _k(k1=5, k3=10))
+    model, trainer = _tgn_variant(fanouts=(10, 10), dedup="auto")
+    state = trainer.init_state(num_nodes, seed=0)
+    for b in gb[:warm]:
+        trainer.train_step(state, dg, ef, b)
+    _, tr2 = _variant_path(torch, kernels, "two-layer train",
+                           fast(trainer, state, num_all2),
+                           gb[warm:warm + 5],
+                           lambda o: _expect(5, 5, 0,
+                                             sum(x[-1] for x in o)))
+    tr2["calibration"] = trainer.calibration
+    launches.update(variants_two_layer_eval=ev2["launches"],
+                    variants_two_layer_train=tr2["launches"])
+    out["two_layer"] = dict(memory_rows=num_all2, eval=ev2, train=tr2)
+    _log("variants", path="two_layer", **out["two_layer"])
+    probe = _take(full, B, full.dst, PROBE_BATCH)[-1]
+    inner = sample_hops(dg, torch.from_numpy(probe.target_nodes).cuda(),
+                        torch.from_numpy(probe.ts).cuda(),
+                        fanouts=[10, 10])[0][0]
+    rows["neighborhood_attention"]["two_layer_B132000"] = _kernel_k3(
+        torch, w, inner.nbr_mask.contiguous(), torch.bfloat16, 2 ** -6,
+        1e-5)
+    del model, trainer, state, inner
+    rows["gru_memory_fused"]["two_layer_N1452000"] = _k1_at(torch, w,
+                                                            num_all2)
+
+    # ---- the GRU gate table against the per-instance step ------------
+    paths = {}
+    for name, kw, k in (("per_instance", {}, _k(runs, runs)),
+                        ("gru_table", {"gru_table": True}, _k())):
+        model, trainer = _tgn_variant(trainer_kw=kw)
+        state = trainer.init_state(num_nodes, seed=0)
+        for b in gb[:warm]:
+            trainer.train_step(state, dg, ef, b)
+        _, paths[name] = _variant_path(torch, kernels, f"gru {name}",
+                                       trained(trainer, state), gb[warm:],
+                                       k)
+    launches["variants_gru_table"] = paths["gru_table"]["launches"]
+    paths["f32"] = _f32_pair(torch, num_nodes, dg, ef, gb[:3],
+                             dict(trainer_kw={"gru_table": True}), {})
+    out["gru_table"] = paths
+    _log("variants", path="gru_table", **paths)
+
+    # ---- remat against the plain step: two layers, K3 in training ----
+    rb = gb[:warm + 5]
+    paths = {}
+    for name, remat, k3 in (("plain", False, 10), ("remat", True, 20)):
+        model, trainer = _tgn_variant(fanouts=(10, 10), att_dropout=0.0,
+                                      remat_attention=remat)
+        state = trainer.init_state(num_nodes, seed=0)
+        for b in rb[:warm]:
+            trainer.train_step(state, dg, ef, b)
+        _, paths[name] = _variant_path(torch, kernels, f"remat {name}",
+                                       trained(trainer, state), rb[warm:],
+                                       _k(5, 5, k3))
+        del model, trainer, state
+    launches["variants_remat"] = paths["remat"]["launches"]
+    paths["f32"] = _f32_pair(torch, num_nodes, dg, ef, rb[:3],
+                             dict(fanouts=(10, 10), dropout=0.2,
+                                  att_dropout=0.2, remat_attention=True),
+                             dict(fanouts=(10, 10), dropout=0.2,
+                                  att_dropout=0.2), exact=True)
+    out["remat"] = paths
+    _log("variants", path="remat", **paths)
+
+    # ---- factorized attention against K3: eval -----------------------
+    paths = {}
+    for name, impl, k3 in (("k3", "xla", runs),
+                           ("factorized", "xla_factorized", 0)):
+        model, trainer = _tgn_variant(attention_impl=impl)
+        state = trainer.init_state(num_nodes, seed=0)
+        eb1 = _take(full, B, full.dst, warm + runs)
+        for b in eb1[:warm]:
+            trainer.eval_step(state, dg, ef, b)
+        _, paths[name] = _variant_path(torch, kernels, f"attention {name}",
+                                       evaluated(trainer, state), eb1[warm:],
+                                       _k(k1=runs, k3=k3))
+    launches["variants_factorized_eval"] = paths["factorized"]["launches"]
+    paths["f32"] = _f32_pair(torch, num_nodes, dg, ef, eb1[:3],
+                             dict(attention_impl="xla_factorized"), {},
+                             train=False)
+    out["factorized"] = paths
+    _log("variants", path="factorized", **paths)
+
+    # ---- the scanned steps: bit-equal to the loop; the script --------
+    sb = gb[:5]
+    model, trainer = _tgn_variant()
+    state = trainer.init_state(num_nodes, seed=0)
+    loop = torch.stack([trainer.train_step(state, dg, ef, b)[1]
+                        for b in sb])
+    model, trainer = _tgn_variant()
+    state = trainer.init_state(num_nodes, seed=0)
+    arrays = [torch.stack(t) for t in
+              zip(*map(trainer.batch_arrays, sb))]
+    torch.cuda.synchronize()
+    _reset(kernels)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, scan = trainer.train_steps_scan(state, dg, ef, *arrays)
+    end.record()
+    torch.cuda.synchronize()
+    scan_launches = {n: fn.launches for n, fn in kernels.items()}
+    _check_launches(scan_launches, _expect(5, 5), "[variants] scan")
+    if not torch.equal(loop, scan):
+        raise AssertionError(f"[variants] scan: losses {scan.tolist()} "
+                             f"differ from the loop's {loop.tolist()}")
+    _reset(kernels)
+    t0 = time.perf_counter()
+    res = entry.main(["--model", "TGN", "--data", "SYNTHETIC", "--epoch",
+                      "1", "--use-scan"], checkpoint_path=os.path.join(
+                          _build.BUILD_DIR, "TGN_scan_torch.ckpt"))
+    torch.cuda.synchronize()
+    script = dict(seconds=time.perf_counter() - t0,
+                  launches={n: fn.launches for n, fn in kernels.items()},
+                  val_ap=res["val_ap"], test_ap=res["test_ap"])
+    if not (0.0 < res["test_ap"] <= 1.0
+            and script["launches"]["gru_memory_fused_bwd"] > 0):
+        raise AssertionError(f"[variants] --use-scan: {script}")
+    launches.update(variants_scan=scan_launches,
+                    variants_scan_script=script["launches"])
+    out["scan"] = dict(steps=5, ms_per_step=start.elapsed_time(end) / 5,
+                       losses_bit_equal=True, launches=scan_launches,
+                       script=script)
+    _log("variants", path="scan", **out["scan"])
+
+    # ---- memory updaters without time encoding: one train step each --
+    paths = {}
+    for name, over in (("gru", {}), ("transformer", dict(
+            memory_updater="transformer", mailbox_slots=10))):
+        model, trainer = _tgn_variant(dim_time=0, **over)
+        state = trainer.init_state(num_nodes, seed=0)
+        _, paths[name] = _variant_path(torch, kernels, f"no time {name}",
+                                       trained(trainer, state), gb[:1],
+                                       _k())
+        if not _all_finite(torch, state, model):
+            raise AssertionError(f"[variants] {name} without time "
+                                 "encoding: a non-finite value")
+    launches["variants_no_time"] = {
+        n: sum(p["launches"][n] for p in paths.values()) for n in kernels}
+    out["no_time_encoding"] = paths
+    _log("variants", path="no_time_encoding", **paths)
+
+    # ---- a REPLACE store beside INSERT: ingestion ---------------------
+    stores = {}
+    for policy in ("insert", "replace"):
+        t0 = time.perf_counter()
+        s = DynamicGraph(initial_pool_size=1 << 20,
+                         maximum_pool_size=1 << 24, minimum_block_size=62,
+                         insertion_policy=policy)
+        for lo in range(0, len(full), 100_000):
+            sl = slice(lo, lo + 100_000)
+            s.add_edges(full.src[sl], full.dst[sl], full.time[sl],
+                        full.eid[sl], add_reverse=True)
+        stores[policy] = (s, (time.perf_counter() - t0) * 1e3)
+    ins, rep = stores["insert"][0], stores["replace"][0]
+    b = eb[-1]
+    roots = torch.from_numpy(b.target_nodes).cuda()
+    ts = torch.from_numpy(b.ts).cuda()
+    a_, b_ = (sample_hops(s.device_graph("cuda"), roots, ts,
+                          fanouts=[10])[0][0] for s in (ins, rep))
+    same = all(torch.equal(getattr(a_, f), getattr(b_, f)) for f in (
+        "nbr_nids", "nbr_ts", "nbr_eids", "nbr_mask"))
+    if not (same and np.array_equal(ins._row_len, rep._row_len)):
+        raise AssertionError("[variants] the REPLACE store samples other "
+                             "neighbours than INSERT")
+    out["replace_store"] = dict(
+        edges=2 * len(full), insert_ingest_ms=stores["insert"][1],
+        replace_ingest_ms=stores["replace"][1],
+        insert_pool_used=ins._pool_used, replace_pool_used=rep._pool_used,
+        samples_equal=same)
+    _log("variants", path="replace_store", **out["replace_store"])
+    del stores, ins, rep
+    for name, sub in rows.items():
+        _log("variants", kernel=name, **sub)
+    return dict(launches=launches, rows=rows, **out)
+
+
+def _f32_pair(torch, num_nodes, dg, ef, batches, over_a, over_b,
+              exact=False, train=True):
+    """Variant ``over_a`` against ``over_b`` in f32 at dropout 0 (unless
+    set), from the same seeded weights and state: 3 train steps (losses,
+    parameters, memory after each) or eval batches (logits), held to
+    ``VARIANT_TOL``, or bit for bit with ``exact``.  Returns the largest
+    errors."""
+    runs = []
+    for over in (over_a, over_b):
+        o = {"dropout": 0.0, "att_dropout": 0.0, **over}
+        model, trainer = _tgn_variant(compute_dtype=None, **o)
+        state = trainer.init_state(num_nodes, seed=0)
+        trace = []
+        for b in batches:
+            if train:
+                _, loss, pos, neg = trainer.train_step(state, dg, ef, b)
+            else:
+                _, loss, pos, neg = trainer.eval_step(state, dg, ef, b)
+            trace.append(dict(
+                loss=loss.double(), logits=torch.cat([pos, neg]).double(),
+                params=[p.detach().clone() for p in model.parameters()],
+                memory=torch.cat([state.memory.node_memory,
+                                  state.memory.mailbox], 1).clone()))
+        runs.append(trace)
+    errs = dict(loss_rel=0.0, param=0.0, memory=0.0, logits=0.0)
+    for x, y in zip(*runs):
+        errs["loss_rel"] = max(errs["loss_rel"], _rel(x["loss"], y["loss"]))
+        errs["logits"] = max(errs["logits"], (x["logits"] - y["logits"])
+                             .abs().max().item())
+        errs["param"] = max([errs["param"]] + [
+            (p - q).abs().max().item() for p, q in zip(x["params"],
+                                                        y["params"])])
+        errs["memory"] = max(errs["memory"], (x["memory"] - y["memory"])
+                             .abs().max().item())
+    held = {k: v for k, v in errs.items()
+            if k in (("loss_rel", "param", "memory") if train
+                     else ("logits", "memory"))}
+    bad = {k: v for k, v in held.items()
+           if (v != 0.0 if exact else v > VARIANT_TOL[k])}
+    if bad:
+        raise AssertionError(f"[variants] f32 {over_a} against {over_b}: "
+                             f"{bad} beyond {'0' if exact else VARIANT_TOL}")
+    return dict(steps=len(batches), exact=exact, **held)
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -4393,6 +4833,7 @@ def main() -> int:
     ca = phase_cache(torch, kernels, on)
     pa = phase_parallel(torch, kernels, stream)
     so = phase_storage(torch, kernels, stream)
+    va = phase_variants(torch, kernels, stream)
     # the CPU-card checks time nothing, so the parity harness runs beside
     parity = start_parity()
     try:
@@ -4421,7 +4862,7 @@ def main() -> int:
     # and on the dedup, the cached steps over a host and a sharded master,
     # the partitioned script's epoch and the multiprocess script's cut
     # epoch with the cache; the storage phase's train steps in f32 and
-    # bf16 storage
+    # bf16 storage; the variants phase's paths (its docstring)
     paths = {"eval": sl["launches"], "train": tr["launches"],
              "train_att_dropout0": tr["att_dropout0"]["launches"],
              "dedup_train": dd["launches"],
@@ -4429,7 +4870,8 @@ def main() -> int:
              "dedup_eval": dd["eval"]["launches"], "entry": en["launches"],
              **tg["launches"], **dy["launches"], **ap["launches"],
              **st["launches"], **on["launches"], **inf["launches"],
-             **ca["launches"], **pa["launches"], **so["launches"]}
+             **ca["launches"], **pa["launches"], **so["launches"],
+             **va["launches"]}
     for row in rows:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()}
         row["launches"] = sum(row["launches_by_path"].values())
@@ -4441,6 +4883,8 @@ def main() -> int:
             row["apan"] = ap["rows"][row["name"]]
         if row["name"] in st["rows"]:
             row["static"] = st["rows"][row["name"]]
+        if row["name"] in va["rows"]:
+            row["variants"] = va["rows"][row["name"]]
     print(json.dumps({"kernels": rows, "card": dev["smi"],
                       "profiler_empty": PROFILER_EMPTY}), flush=True)
     print(json.dumps({"ok": True, "device": {

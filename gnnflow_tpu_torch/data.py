@@ -334,12 +334,14 @@ class RandEdgeSampler:
 
 @dataclass
 class Batch:
-    """One link-prediction batch: ``target_nodes`` is ``[src | dst | neg]``
-    (3B), ``ts`` the tripled timestamps.  Short slices are padded (node id
-    -1, eid 0) and ``num_valid < batch_size``."""
+    """One link-prediction batch: ``target_nodes`` is ``[src | dst |
+    neg]`` ((2+r)·B with ``r`` negatives per edge, the ``r`` negative
+    blocks one after the other), ``ts`` the timestamps repeated for each
+    block.  Short slices are padded (node id -1, eid 0) and ``num_valid <
+    batch_size``."""
 
-    target_nodes: np.ndarray  # int64 [3B]
-    ts: np.ndarray            # float32 [3B]
+    target_nodes: np.ndarray  # int64 [(2+r)B]
+    ts: np.ndarray            # float32 [(2+r)B]
     eids: np.ndarray          # int64 [B]
     num_valid: int            # valid positive edges (<= B)
 
@@ -371,7 +373,9 @@ def get_batches(data: EdgeTable, batch_size: int,
                 neg_sampler: Optional[DstRandEdgeSampler] = None,
                 num_chunks: int = 0,
                 rng: Optional[np.random.RandomState] = None,
+                pad: bool = True,
                 rank: int = 0, world_size: int = 1,
+                neg_sample_ratio: int = 1,
                 interleave_indices: bool = False) -> Iterator[Batch]:
     """Iterate fixed-size batches over a chronological edge table
     (``data.py:393-451``).
@@ -385,6 +389,10 @@ def get_batches(data: EdgeTable, batch_size: int,
     ``DistributedBatchSampler``'s split, rank r taking the edges whose
     index is ``r`` modulo ``world_size`` (counted from the start) and
     packing ``batch_size`` of them per batch.
+
+    ``neg_sample_ratio`` r draws ``r·k`` negatives for a slice of ``k``
+    edges in one call, laid out ``[r, k]`` (so ``target_nodes`` is
+    ``[(2+r)·B]``); ``pad=False`` leaves a short last slice unpadded.
     """
     start = 0
     if num_chunks > 0:
@@ -407,8 +415,9 @@ def get_batches(data: EdgeTable, batch_size: int,
     for sel in selections():
         k = len(sel)
         if neg_sampler is not None:
-            neg = neg_sampler.sample(k).reshape(1, k)
+            neg = neg_sampler.sample(neg_sample_ratio * k) \
+                .reshape(neg_sample_ratio, k)
         else:
-            neg = np.full((1, k), -1, dtype=np.int64)
+            neg = np.full((neg_sample_ratio, k), -1, dtype=np.int64)
         yield _pad_batch(data.src[sel], data.dst[sel], neg, data.time[sel],
-                         data.eid[sel], batch_size)
+                         data.eid[sel], batch_size if pad else k)

@@ -4,7 +4,9 @@ Counterpart of ``gnnflow_tpu/dynamic_graph.py:78-545`` and of the NumPy
 fallbacks in ``gnnflow_tpu/csrc/__init__.py``.  Vertex ``v`` owns pool
 slots ``[row_off[v], row_off[v] + row_cap[v])`` holding ``row_len[v]``
 edges sorted by timestamp; a vertex whose region fills moves to a
-power-of-two region at the pool tail.  Eviction
+region at the pool tail: a power of two of its edges (the default), a
+multiple of ``minimum_block_size`` (``adaptive_block_size=False``) or
+exactly its edges (``insertion_policy="replace"``).  Eviction
 (:meth:`DynamicGraph.offload_old_blocks`) drops each vertex's edges older
 than a timestamp by moving ``row_off`` forward, optionally spilling them
 to a file that :meth:`DynamicGraph.restore_from_file` re-inserts;
@@ -121,28 +123,51 @@ class DynamicGraph:
     ``mem_resource_type`` places the device view: ``hbm`` (alias
     ``cuda``) on the card, ``host`` (aliases ``unified``, ``pinned``,
     ``shared``) on the CPU; ``placement`` holds the placement.
-    A vertex whose region fills moves to a region of the next power of two
-    edges, at least ``minimum_block_size`` (the JAX package's default
-    ``insertion_policy="insert"`` with ``adaptive_block_size=True``).
-    Evicted edges spill to ``spill_dir`` (default ``graph_spill/`` at the
-    repository root).  ``uploads`` counts the device views built."""
+    A vertex whose region fills moves to a new region at the pool tail
+    (``dynamic_graph.py:286-320``): with ``insertion_policy="insert"``
+    (the default) and ``adaptive_block_size`` the next power of two of its
+    edges, without ``adaptive_block_size`` the next multiple of
+    ``minimum_block_size``, each at least ``minimum_block_size``; with
+    ``"replace"`` exactly its edges, at least ``minimum_block_size`` (the
+    reference's exact-fit reallocation in place).  No edge is lost either
+    way.  ``blocks_to_preallocate`` grows the initial pool by that many
+    minimum-size regions.  Given ``source_vertices``, ``target_vertices``
+    and ``timestamps`` (and ``eids``, ``add_reverse``) the constructor
+    ingests them (``:172-175``).  Evicted edges spill to ``spill_dir``
+    (default ``graph_spill/`` at the repository root).  ``uploads``
+    counts the device views built."""
 
     def __init__(self, initial_pool_size: int = 1 << 20,
                  maximum_pool_size: int = 1 << 26,
                  minimum_block_size: int = 16,
                  spill_dir: Optional[str] = None,
-                 mem_resource_type: str = "hbm"):
+                 mem_resource_type: str = "hbm",
+                 blocks_to_preallocate: int = 0,
+                 insertion_policy: str = "insert",
+                 adaptive_block_size: bool = True,
+                 source_vertices: Optional[np.ndarray] = None,
+                 target_vertices: Optional[np.ndarray] = None,
+                 timestamps: Optional[np.ndarray] = None,
+                 eids: Optional[np.ndarray] = None,
+                 add_reverse: bool = False):
         placement = STORAGE_ALIASES.get(mem_resource_type.lower())
         if placement is None:
             raise ValueError(
                 f"Invalid memory resource type: {mem_resource_type}")
+        insertion_policy = insertion_policy.lower()
+        if insertion_policy not in ("insert", "replace"):
+            raise ValueError(f"Invalid insertion policy: {insertion_policy}")
         self.placement = placement
+        self.insertion_policy = insertion_policy
+        self.adaptive_block_size = bool(adaptive_block_size)
         self.minimum_block_size = int(max(1, minimum_block_size))
         self.maximum_pool_size = int(maximum_pool_size)
         self.spill_dir = spill_dir or os.path.join(get_project_root_dir(),
                                                    "graph_spill")
 
-        cap = _next_pow2(max(int(initial_pool_size), 1024))
+        cap = _next_pow2(max(int(initial_pool_size), 1024,
+                             int(blocks_to_preallocate)
+                             * self.minimum_block_size))
         self._pool_cap = cap
         self._dst = np.zeros(cap, dtype=np.int32)
         self._ts = np.zeros(cap, dtype=np.float32)
@@ -168,6 +193,24 @@ class DynamicGraph:
         self._view_device: Optional[torch.device] = None
         self._dirty = True
         self.uploads = 0
+        if source_vertices is not None and target_vertices is not None \
+                and timestamps is not None:
+            self.add_edges(source_vertices, target_vertices, timestamps,
+                           eids, add_reverse)
+
+    def _region_caps(self, lens: np.ndarray, policy: str) -> np.ndarray:
+        """The capacity of a region for ``lens`` live edges: exact
+        (``"replace"``), the next power of two (adaptive) or the next
+        multiple of ``minimum_block_size``, each at least
+        ``minimum_block_size`` (``dynamic_graph.py:298-313, 413-418``)."""
+        mbs = self.minimum_block_size
+        if policy == "replace":
+            return np.maximum(lens, mbs)
+        if self.adaptive_block_size:
+            return np.maximum(
+                mbs, 2 ** np.ceil(np.log2(np.maximum(lens, 1)))
+                .astype(np.int64))
+        return np.maximum(((lens + mbs - 1) // mbs) * mbs, mbs)
 
     # -- capacity ------------------------------------------------------
 
@@ -270,11 +313,7 @@ class DynamicGraph:
         need = new_len > old_cap
         if need.any():
             vs = uniq[need]
-            grow_len = new_len[need]
-            caps = np.maximum(
-                self.minimum_block_size,
-                2 ** np.ceil(np.log2(np.maximum(grow_len, 1)))
-                .astype(np.int64))
+            caps = self._region_caps(new_len[need], self.insertion_policy)
             total = int(caps.sum())
             self._ensure_pool_capacity(total)
             new_offs = self._pool_used + _exclusive_cumsum(caps)
@@ -356,14 +395,14 @@ class DynamicGraph:
 
     def compact(self) -> None:
         """Repack every region to the front of the pool, each at the
-        power of two of its live edges, at least ``minimum_block_size``
+        power of two of its live edges (or, without
+        ``adaptive_block_size``, the multiple of ``minimum_block_size``),
+        at least ``minimum_block_size``, whatever the insertion policy
         (``dynamic_graph.py:407-433``), reclaiming what reallocation and
         eviction left behind."""
         active = np.flatnonzero(self._row_cap > 0)
         lens = self._row_len[active]
-        caps = np.maximum(
-            self.minimum_block_size,
-            2 ** np.ceil(np.log2(np.maximum(lens, 1))).astype(np.int64))
+        caps = self._region_caps(lens, "insert")
         new_offs = _exclusive_cumsum(caps)
         intra = _ranged_arange(lens)
         src_idx = np.repeat(self._row_off[active], lens) + intra
@@ -474,21 +513,28 @@ def build_dynamic_graph(initial_pool_size: int, maximum_pool_size: int,
                         mem_resource_type: str, minimum_block_size: int,
                         insertion_policy: str, undirected: bool,
                         node_feature: bool = False,
-                        edge_feature: bool = False) -> DynamicGraph:
+                        edge_feature: bool = False,
+                        blocks_to_preallocate: int = 0,
+                        adaptive_block_size: bool = True,
+                        dataset=None) -> DynamicGraph:
     """A :class:`DynamicGraph` from a data config's keys
     (:func:`gnnflow_tpu_torch.config.get_default_config`), as the JAX
-    package's ``build_dynamic_graph`` without a seed dataset.
-    ``undirected`` is the caller's ``add_reverse`` when it ingests, and the
-    feature flags say which feature files a dataset has; neither shapes
-    the store.  ``mem_resource_type`` places it (:data:`STORAGE_ALIASES`).
-    Raises on the ``replace`` insertion policy, which the port's store
-    lacks."""
-    del undirected, node_feature, edge_feature
-    if insertion_policy.lower() != "insert":
-        raise NotImplementedError(
-            f"insertion_policy={insertion_policy!r} is not ported yet "
-            "(ROADMAP.md, modules to port, item 14)")
+    package's ``build_dynamic_graph`` (``dynamic_graph.py:547-575``):
+    ``mem_resource_type`` places it (:data:`STORAGE_ALIASES`), and
+    ``dataset``, an :class:`~gnnflow_tpu_torch.data.EdgeTable`, seeds it,
+    each edge also reversed when ``undirected``.  The feature flags say
+    which feature files a dataset has; they do not shape the store."""
+    del node_feature, edge_feature
+    seed = {}
+    if dataset is not None:
+        seed = dict(source_vertices=dataset.src,
+                    target_vertices=dataset.dst,
+                    timestamps=dataset.time, eids=dataset.eid)
     return DynamicGraph(initial_pool_size=initial_pool_size,
                         maximum_pool_size=maximum_pool_size,
                         minimum_block_size=minimum_block_size,
-                        mem_resource_type=mem_resource_type)
+                        mem_resource_type=mem_resource_type,
+                        blocks_to_preallocate=blocks_to_preallocate,
+                        insertion_policy=insertion_policy,
+                        adaptive_block_size=adaptive_block_size,
+                        add_reverse=undirected, **seed)

@@ -10,9 +10,12 @@ embeddings) and the edge predictor, for inference and training.  Between
 layers an expansion spec expands a compact layer's output back to the
 next layer's instances (``dgnn.py:166-183``): ``("rows", inv, sidx,
 rank_sorted)`` from the layer and snapshot dedups, or ``("blocks", rank,
-cap, fanout)`` from the block compaction of windowed snapshots.  Other
-configurations raise ``NotImplementedError`` naming the ROADMAP.md item
-that brings them.
+cap, fanout)`` from the block compaction of windowed snapshots.  A
+model with memory runs its updater on the innermost MFG, whose output
+feeds layer 0 only, over any number of layers.  ``remat_attention``
+recomputes each attention layer in the backward pass
+(:func:`_remat`), and ``neg_sample_ratio`` sizes the edge predictor's
+negative blocks.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gnnflow_tpu_torch.common import MFG, resolve_device
 from gnnflow_tpu_torch.models.memory import (GRUMemoryUpdater,
@@ -61,7 +65,8 @@ class DGNN(nn.Module):
                  use_memory: bool, dim_memory: Optional[int] = None,
                  memory_updater: str = "gru", mailbox_slots: int = 1,
                  compute_dtype: Optional[str] = None, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", attention_impl: str = "xla",
+                 neg_sample_ratio: int = 1, remat_attention: bool = False):
         super().__init__()
         if use_memory and num_snapshots != 1:
             raise ValueError("memory is not supported for multiple "
@@ -70,10 +75,8 @@ class DGNN(nn.Module):
             raise ValueError(f"unknown memory updater {memory_updater!r}")
         if mailbox_slots < 1:
             raise ValueError("mailbox_slots must be at least 1")
-        if use_memory and num_layers != 1:
-            raise NotImplementedError(
-                "memory with more than one layer is not ported yet "
-                "(ROADMAP.md, modules to port, item 5)")
+        if neg_sample_ratio < 1:
+            raise ValueError("neg_sample_ratio must be at least 1")
         if use_memory and dim_memory is None:
             raise ValueError("a model with memory needs dim_memory")
         if num_layers < 1 or num_snapshots < 1:
@@ -90,6 +93,8 @@ class DGNN(nn.Module):
         self.num_layers, self.num_snapshots = num_layers, num_snapshots
         self.compute_dtype = compute_dtype
         self.dropout, self.att_dropout = dropout, att_dropout
+        self.neg_sample_ratio = int(neg_sample_ratio)
+        self.remat_attention = bool(remat_attention)
         gen = torch.Generator().manual_seed(seed)
         if use_memory and memory_updater == "gru":
             self.updater = GRUMemoryUpdater(dim_node, dim_edge, dim_time,
@@ -100,11 +105,12 @@ class DGNN(nn.Module):
         dim_in = dim_memory if use_memory else dim_node
         self.layers = nn.ModuleDict({f"l{l}h{h}": TemporalAttentionLayer(
             dim_in if l == 0 else dim_embed, dim_edge, dim_time, dim_embed,
-            att_head, gen, cd, dropout, att_dropout)
+            att_head, gen, cd, dropout, att_dropout, attention_impl)
             for l in range(num_layers) for h in range(num_snapshots)})
         if num_snapshots > 1:
             self.combiner = SimpleRNNCell(dim_embed, gen)
-        self.edge_predictor = EdgePredictor(dim_embed, gen)
+        self.edge_predictor = EdgePredictor(dim_embed, gen,
+                                            self.neg_sample_ratio)
         self.to(dev)
         self.cast_weights()
 
@@ -171,9 +177,12 @@ class DGNN(nn.Module):
             spec = expansions[l] if expansions is not None else None
             next_h = []
             for h in range(S):
-                rst = self.layers[f"l{l}h{h}"](mfgs[l][h], h_in[h],
-                                               edge_feats[l][h], train,
-                                               generator)
+                layer = self.layers[f"l{l}h{h}"]
+                args = (mfgs[l][h], h_in[h], edge_feats[l][h], train,
+                        generator)
+                rst = _remat(layer, *args) \
+                    if self.remat_attention and torch.is_grad_enabled() \
+                    else layer(*args)
                 if l == self.num_layers - 1:
                     out.append(rst)
                     continue
@@ -193,3 +202,32 @@ class DGNN(nn.Module):
             return embed, last_updated
         pos, neg = self.edge_predictor(embed)
         return pos, neg, last_updated
+
+
+def _remat(layer: nn.Module, mfg: MFG, h_all, edge_feats, train: bool,
+           generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``layer(mfg, h_all, edge_feats, train, generator)`` under
+    ``torch.utils.checkpoint``, ``nn.remat``'s counterpart
+    (``dgnn.py:75, 102-105``; ``train`` passed positionally, as the JAX
+    site requires): nothing between the inputs and the output is kept, and
+    the backward pass runs the layer again, the fused attention kernel
+    included.  Dropout draws from the explicit ``generator``, which
+    ``preserve_rng_state`` does not cover: its state is taken before the
+    forward and set again around the recompute, so both draw the same
+    masks, and restored after it."""
+    start = generator.get_state() if generator is not None else None
+    calls = [0]
+
+    def run(h, ef):
+        calls[0] += 1
+        if calls[0] == 1 or generator is None:
+            return layer(mfg, h, ef, train, generator)
+        after = generator.get_state()
+        generator.set_state(start)
+        try:
+            return layer(mfg, h, ef, train, generator)
+        finally:
+            generator.set_state(after)
+
+    return checkpoint(run, h_all, edge_feats, use_reentrant=False,
+                      preserve_rng_state=False)

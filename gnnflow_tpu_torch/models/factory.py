@@ -4,9 +4,12 @@ config-registry entry.
 Counterpart of ``gnnflow_tpu/models/factory.py:build_model``: GraphSAGE
 and static GAT build :mod:`~gnnflow_tpu_torch.models.static`'s models,
 every other registry model (TGN, TGAT, DySAT, APAN, and GAT without
-``is_static``) the :class:`~gnnflow_tpu_torch.models.dgnn.DGNN`.  A
-config with more than one negative per edge raises
-``NotImplementedError`` naming the ROADMAP.md item that brings it.
+``is_static``) the :class:`~gnnflow_tpu_torch.models.dgnn.DGNN`, which
+also reads ``attention_impl``, ``neg_sample_ratio`` and
+``remat_attention`` (``factory.py:36-58``); the DGNN family's trainer
+kwargs carry the ratio.  As in JAX, GraphSAGE and static GAT are built
+without it: their predictors split the roots in three
+(``static.py:184, 238``).
 """
 from __future__ import annotations
 
@@ -24,10 +27,12 @@ def build_model(name: str, model_config: dict, dim_node: int, dim_edge: int,
     if name not in MODELS:
         raise ValueError(f"unknown model {name!r}")
     cfg = dict(model_config)
-    if cfg.get("neg_sample_ratio", 1) != 1:
-        raise NotImplementedError(
-            f"neg_sample_ratio={cfg['neg_sample_ratio']!r} is not ported yet "
-            f"(ROADMAP.md, modules to port, item 5)")
+    kwargs = {"fanouts": cfg["fanouts"],
+              "sample_strategy": cfg.get("sample_strategy", "recent"),
+              "num_snapshots": cfg.get("num_snapshots", 1),
+              "snapshot_time_window": cfg.get("snapshot_time_window", 0),
+              "prop_time": cfg.get("prop_time", False),
+              "is_static": cfg.get("is_static", False)}
     common = dict(compute_dtype=cfg.get("compute_dtype"), seed=seed,
                   device=device)
     if name == "graphsage":
@@ -53,10 +58,10 @@ def build_model(name: str, model_config: dict, dim_node: int, dim_edge: int,
                      use_memory=cfg.get("use_memory", False),
                      dim_memory=cfg.get("dim_memory"),
                      memory_updater=cfg.get("memory_updater", "gru"),
-                     mailbox_slots=cfg.get("mailbox_slots", 1), **common)
-    return model, {"fanouts": cfg["fanouts"],
-                   "sample_strategy": cfg.get("sample_strategy", "recent"),
-                   "num_snapshots": cfg.get("num_snapshots", 1),
-                   "snapshot_time_window": cfg.get("snapshot_time_window", 0),
-                   "prop_time": cfg.get("prop_time", False),
-                   "is_static": cfg.get("is_static", False)}
+                     mailbox_slots=cfg.get("mailbox_slots", 1),
+                     attention_impl=cfg.get("attention_impl", "xla"),
+                     neg_sample_ratio=cfg.get("neg_sample_ratio", 1),
+                     remat_attention=cfg.get("remat_attention", False),
+                     **common)
+        kwargs["neg_sample_ratio"] = cfg.get("neg_sample_ratio", 1)
+    return model, kwargs

@@ -45,8 +45,11 @@ from torch import nn
 
 from gnnflow_tpu_torch.common import MFG
 from gnnflow_tpu_torch.models.modules import (FusedGRUCell, Linear,
-                                              MultiLinear, TimeEncode)
-from gnnflow_tpu_torch.ops.apan_kv import apan_table_pull
+                                              MultiLinear, TimeEncode,
+                                              gru_gates)
+from gnnflow_tpu_torch.ops.apan_kv import (apan_table_pull,
+                                           apan_table_pull_sharded)
+from gnnflow_tpu_torch.ops.gru_gather import gru_node_gather
 from gnnflow_tpu_torch.ops.segment import unique_keep_last_mask
 from gnnflow_tpu_torch.ops.segment_sum import expand_compact
 
@@ -218,13 +221,19 @@ class DedupMemoryInput:
     sidx: torch.Tensor           # [L] sorted position -> instance
     rank_sorted: torch.Tensor    # [L] int32 non-decreasing slots
     node_feats: Optional[torch.Tensor] = None   # [N, dim_node] table
+    # the transformer updater pulls the pairs through its K/V table, as
+    # JAX's always does (memory.py:609-619); over sharded memory the
+    # trainer sets its apan_table here, so that ranks on either branch
+    # make the same exchanges
+    table: bool = True
 
 
 @dataclass
 class RawMemoryInput:
     """The raw state as the updater's input (``memory.py:306-311``): the
-    transformer updater's table path pulls its rows itself
-    (:func:`~gnnflow_tpu_torch.ops.apan_kv.apan_table_pull`)."""
+    updaters' table paths pull their rows themselves (the transformer's
+    :func:`~gnnflow_tpu_torch.ops.apan_kv.apan_table_pull`, the GRU's
+    :func:`~gnnflow_tpu_torch.ops.gru_gather.gru_node_gather`)."""
 
     state: MemoryState
 
@@ -310,11 +319,12 @@ def prepare_input(state: MemoryState, mfg: MFG,
 
 
 def table_ok(state: MemoryState) -> bool:
-    """Can the transformer updater pull from the whole tables
-    (:func:`~gnnflow_tpu_torch.ops.apan_kv.apan_table_pull`)?  Not over a
-    sharded state, whose tables no rank holds, nor over bf16 storage, as
-    in JAX (``train.py:232-241, 842``): those take pulled rows."""
-    return state.shard is None and state.storage == "float32"
+    """Can the transformer updater pull from the tables
+    (:func:`~gnnflow_tpu_torch.ops.apan_kv.apan_table_pull`, or over a
+    sharded state :func:`~gnnflow_tpu_torch.ops.apan_kv.
+    apan_table_pull_sharded`)?  Not over bf16 storage, as in JAX
+    (``train.py:232-241, 842``): that takes pulled rows."""
+    return state.storage == "float32"
 
 
 def pull_dtype(state: MemoryState,
@@ -378,9 +388,15 @@ class GRUMemoryUpdater(nn.Module):
     :class:`DedupMemoryInput`, over the compact rows, expanded back to the
     instances by :func:`~gnnflow_tpu_torch.ops.segment_sum.expand_compact`.
     With S mail slots the GRU reads the latest mail, slot ``(ptr - 1) mod
-    S`` (``memory.py:520-526``).  With node features (``dim_node > 0``)
-    the output adds them, through ``node_feat_proj`` where their width is
-    not the memory's; the write-back takes the memory without them.
+    S`` (``memory.py:520-526``).  Without time encoding (``dim_time`` 0)
+    the cell has no time part and runs its plain form, as JAX's
+    (``:540-542``; the fused kernel needs a time part).  Given a
+    :class:`RawMemoryInput` (the trainer's ``gru_table``) it projects the
+    gates once per node and gathers them (:meth:`_table`,
+    ``memory.py:453-486``), with no kernel.  With node features
+    (``dim_node > 0``) the output adds them, through ``node_feat_proj``
+    where their width is not the memory's; the write-back takes the
+    memory without them.
 
     Returns ``(h, last_updated)``; ``last_updated`` holds the node ids,
     updated memory and timestamps of the dst rows for write-back, detached
@@ -390,22 +406,47 @@ class GRUMemoryUpdater(nn.Module):
                  dim_memory: int, gen: torch.Generator,
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if dim_time <= 0:
-            raise NotImplementedError(
-                "a memory updater without time encoding is not on the TGN "
-                "path (ROADMAP.md, modules to port, item 14)")
         self.dim_node = dim_node
-        self.cell = FusedGRUCell(2 * dim_memory + dim_edge + dim_time,
-                                 dim_memory, gen, compute_dtype)
-        self.time_enc = TimeEncode(dim_time)
+        self.dim_raw = 2 * dim_memory + dim_edge
+        self.cell = FusedGRUCell(self.dim_raw + dim_time, dim_memory, gen,
+                                 compute_dtype)
+        if dim_time > 0:
+            self.time_enc = TimeEncode(dim_time)
         self.node_feat_proj = _node_feat_proj(dim_node, dim_memory, gen)
 
+    def _table(self, mfg: MFG, state: MemoryState) -> torch.Tensor:
+        """The GRU over the instances through the per-node gate table
+        (``memory.py:453-486``): the same math as the cell, the mail and
+        memory products hoisted to node space
+        (:func:`~gnnflow_tpu_torch.ops.gru_gather.gru_node_gather`), the
+        time part and the biases added per instance in the compute dtype.
+        Returns the updated memory [L, f], f32."""
+        cell, dr = self.cell, self.dim_raw
+        cd = cell.compute_dtype or torch.float32
+        ki, kh = cell.ih.kernel, cell.hh.kernel
+        gi, gh, mem_i, mem_ts_i = gru_node_gather(
+            state.node_memory, state.mailbox, state.node_memory_ts,
+            ki[:dr], kh, mfg.all_nodes().clamp(0, state.num_nodes - 1),
+            cell.compute_dtype)
+        if hasattr(self, "time_enc"):
+            tf = self.time_enc(mfg.all_ts() - mem_ts_i)
+            gi = gi + tf.to(cd) @ ki[dr:].to(cd)
+        gi = gi + cell.ih.bias.to(cd)
+        gh = gh + cell.hh.bias.to(cd)
+        return gru_gates(gi, gh, mem_i, kh.shape[0]).float()
+
     def forward(self, mfg: MFG,
-                mem_input: Union[Dict[str, torch.Tensor], DedupMemoryInput],
+                mem_input: Union[Dict[str, torch.Tensor], DedupMemoryInput,
+                                 RawMemoryInput],
                 node_feats: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         all_ts = mfg.all_ts()
-        if isinstance(mem_input, DedupMemoryInput):
+        if isinstance(mem_input, RawMemoryInput):
+            if mem_input.state.mailbox_slots != 1:
+                raise ValueError("RawMemoryInput requires a single-slot "
+                                 "mailbox")
+            updated = self._table(mfg, mem_input.state)
+        elif isinstance(mem_input, DedupMemoryInput):
             # the compact pull is f32 even under bf16 compute
             # (memory.py:516), bf16 over bf16 storage there; the GRU runs
             # over all cap rows, unused slots (nid 0, ts 0) included, as
@@ -415,10 +456,12 @@ class GRUMemoryUpdater(nn.Module):
                 di.state, di.uniq_nids,
                 pull_dtype(di.state, self.cell.compute_dtype))
             updated = self.cell(pulled["mem"], _latest_mail(pulled),
-                                di.uniq_ts - pulled["mem_ts"], self.time_enc)
+                                di.uniq_ts - pulled["mem_ts"],
+                                getattr(self, "time_enc", None))
         else:
             updated = self.cell(mem_input["mem"], _latest_mail(mem_input),
-                                all_ts - mem_input["mem_ts"], self.time_enc)
+                                all_ts - mem_input["mem_ts"],
+                                getattr(self, "time_enc", None))
         h, dst_updated = _with_node_feats(self, mfg, mem_input, updated,
                                           node_feats)
         last_updated = {
@@ -444,7 +487,8 @@ class TransformerMemoryUpdater(nn.Module):
     queries its node's S mail slots in one attention step,
     ``LayerNorm(mem + Σ_S softmax_S(q·k / sqrt(dh)) v)`` per head, with
     ``q = w_q(mem)`` and ``[k | v] = w_kv([mail | TimeEncode(ts -
-    mail_ts)])``.
+    mail_ts)])``, or ``w_kv([mail])`` without time encoding
+    (``memory.py:655-672``).
 
     Three inputs: :class:`RawMemoryInput` (the table path, the trainer's
     default) projects the mail part of K/V once per (node, slot) and
@@ -452,8 +496,9 @@ class TransformerMemoryUpdater(nn.Module):
     then adds the time part and the bias in the compute dtype; a dict of
     pulled rows (:func:`prepare_input_at`) projects per instance as a sum
     of per-part products; a :class:`DedupMemoryInput` runs the table path
-    over the unique (nid, ts) pairs, or over a sharded or bf16-stored
-    state (:func:`table_ok`) pulls their rows and projects them, and
+    over the unique (nid, ts) pairs, or over a bf16-stored state
+    (:func:`table_ok`), or a sharded one without the table
+    (``DedupMemoryInput.table``), pulls their rows and projects them, and
     expands the result back to the instances with
     :func:`~gnnflow_tpu_torch.ops.segment_sum.expand_compact` (whose
     backward is K4).  Scores are summed over each head in f32 and
@@ -474,10 +519,6 @@ class TransformerMemoryUpdater(nn.Module):
                  dim_memory: int, att_head: int, gen: torch.Generator,
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if dim_time <= 0:
-            raise NotImplementedError(
-                "a memory updater without time encoding is not ported yet "
-                "(ROADMAP.md, modules to port, item 14)")
         if dim_memory % att_head:
             raise ValueError("dim_memory must be a multiple of att_head")
         self.dim_node = dim_node
@@ -487,7 +528,8 @@ class TransformerMemoryUpdater(nn.Module):
         self.w_kv = MultiLinear(self.dim_raw + dim_time, 2 * dim_memory, gen,
                                 compute_dtype)
         self.w_q = MultiLinear(dim_memory, dim_memory, gen, compute_dtype)
-        self.time_enc = TimeEncode(dim_time)
+        if dim_time > 0:
+            self.time_enc = TimeEncode(dim_time)
         self.layer_norm = nn.LayerNorm(dim_memory, eps=1e-5)
         self.node_feat_proj = _node_feat_proj(dim_node, dim_memory, gen)
 
@@ -500,11 +542,18 @@ class TransformerMemoryUpdater(nn.Module):
         if state.mailbox_slots == 1:
             mails, mail_ts = mails[:, None], mail_ts[:, None]
         dr, kernel = self.dim_raw, self.w_kv.kernel
-        mem, kv, mail_ts = apan_table_pull(
-            state.node_memory, mails, mail_ts, kernel[:dr],
-            nids.clamp(0, state.num_nodes - 1), self.compute_dtype)
-        tf = self.time_enc(ts[:, None] - mail_ts)           # [n, S, dt]
-        kv = kv + tf.to(cd) @ kernel[dr:].to(cd)
+        nids = nids.clamp(0, state.num_nodes - 1)
+        if state.shard is None:
+            mem, kv, mail_ts = apan_table_pull(
+                state.node_memory, mails, mail_ts, kernel[:dr], nids,
+                self.compute_dtype)
+        else:
+            mem, kv, mail_ts = apan_table_pull_sharded(
+                state.node_memory, mails, mail_ts, kernel[:dr], nids,
+                state.shard, self.compute_dtype)
+        if hasattr(self, "time_enc"):
+            tf = self.time_enc(ts[:, None] - mail_ts)       # [n, S, dt]
+            kv = kv + tf.to(cd) @ kernel[dr:].to(cd)
         return mem, kv + self.w_kv.bias.to(cd)
 
     def _rows_kv(self, pulled: Dict[str, torch.Tensor], ts: torch.Tensor):
@@ -514,6 +563,8 @@ class TransformerMemoryUpdater(nn.Module):
             pulled["mail_ts"]
         if mail.dim() == 2:                                  # one slot
             mail, mail_ts = mail[:, None], mail_ts[:, None]
+        if not hasattr(self, "time_enc"):
+            return mem, self.w_kv([mail])
         tf = self.time_enc(ts[:, None] - mail_ts)
         return mem, self.w_kv([mail,
                                tf.to(self.compute_dtype or torch.float32)])
@@ -541,7 +592,7 @@ class TransformerMemoryUpdater(nn.Module):
         all_ts = mfg.all_ts()
         if isinstance(mem_input, DedupMemoryInput):
             di = mem_input
-            if table_ok(di.state):
+            if di.table and table_ok(di.state):
                 mem, kv = self._table_kv(di.state, di.uniq_nids, di.uniq_ts)
             else:
                 mem, kv = self._rows_kv(prepare_input_at(
@@ -567,13 +618,16 @@ def update_mem_mail(state: MemoryState,
                     last_updated_memory: torch.Tensor,
                     last_updated_ts: torch.Tensor,
                     edge_feats: Optional[torch.Tensor],
-                    valid: torch.Tensor) -> MemoryState:
+                    valid: torch.Tensor,
+                    neg_sample_ratio: int = 1) -> MemoryState:
     """Write mails and memories of the batch's src/dst nodes back into
     ``state``, **in place**; the last occurrence of a node wins.
 
-    ``last_updated_*`` cover the ``[src | dst | neg]`` roots (3B rows);
-    ``valid`` [B] masks padded batch rows.  Mail winners are taken over the
-    interleaved ids, memory winners over the block-ordered ids
+    ``last_updated_*`` cover the ``[src | dst | neg]`` roots ((2+r)·B
+    rows with ``neg_sample_ratio`` r, split in 2 + r blocks,
+    ``memory.py:766-768``); ``valid`` [B] masks padded batch rows.  Mail
+    winners are taken over the interleaved ids, memory winners over the
+    block-ordered ids
     (``memory.py:801-830``); both cover one node set.  With S slots a
     node's mail goes to slot ``ptr mod S``, ``ptr`` read before the write,
     and its memory winner writes ``ptr + 1``, taking ``ptr`` from the
@@ -583,7 +637,7 @@ def update_mem_mail(state: MemoryState,
     even).  A sharded state takes the global batch, the same on every
     rank, and writes only the winners it owns: the winners, the slots and
     the cursor are those of the whole batch, with no exchange."""
-    b = last_updated_nid.shape[0] // 3
+    b = last_updated_nid.shape[0] // (2 + neg_sample_ratio)
     src, dst = last_updated_nid[:b], last_updated_nid[b:2 * b]
     mem_src = last_updated_memory[:b]
     mem_dst = last_updated_memory[b:2 * b]

@@ -38,7 +38,12 @@ from gnnflow_tpu_torch.ops.gru_fused import gru_memory_fused_autograd
 
 __all__ = ["Linear", "MultiLinear", "TimeEncode", "FusedGRUCell",
            "masked_softmax", "dropout", "TemporalAttentionLayer",
-           "EdgePredictor"]
+           "EdgePredictor", "MLP", "ATTENTION_IMPLS"]
+
+# ``attention_impl`` values of the JAX package (``modules.py:303-305``):
+# "xla" and "pallas" both run the fused kernel here, "xla_factorized" the
+# factorized attention where its gate holds
+ATTENTION_IMPLS = ("xla", "pallas", "xla_factorized")
 
 
 def dropout(x: torch.Tensor, p: float,
@@ -176,12 +181,45 @@ class FusedGRUCell(nn.Module):
         self.register_buffer("kh", self.hh.kernel.detach().to(cd).contiguous(),
                              persistent=False)
 
-    def forward(self, h: torch.Tensor, x: torch.Tensor, dts: torch.Tensor,
-                time_enc: TimeEncode) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, x: torch.Tensor,
+                dts: Optional[torch.Tensor],
+                time_enc: Optional[TimeEncode]) -> torch.Tensor:
+        """The updated memory [N, F], f32; without a time part
+        (``time_enc`` None) the plain cell (:meth:`plain`)."""
+        if time_enc is None:
+            return self.plain(h, x)
         return gru_memory_fused_autograd(
             h, x, dts, self.ih.kernel, self.ih.bias, self.hh.kernel,
             self.hh.bias, time_enc.w, time_enc.b, self.ki, self.kh,
             self.compute_dtype)
+
+    def plain(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """The cell without a time part, as JAX's ``FusedGRUCell`` computes
+        it outside its Pallas kernel (``modules.py:198-229``): operands and
+        biases cast to the compute dtype, the gates and ``z * h`` in it,
+        the result f32.  No kernel runs: the JAX package's fused kernel
+        needs a time part (``:198``).  Gradients reach the parameters
+        through autograd (live casts while it records)."""
+        cd = self.compute_dtype or torch.float32
+        f = self.hh.kernel.shape[0]
+
+        def w(p, copy):
+            return p.to(cd) if torch.is_grad_enabled() else copy
+
+        gi = x.to(cd) @ w(self.ih.kernel, self.ki) + self.ih.bias.to(cd)
+        gh = h.to(cd) @ w(self.hh.kernel, self.kh) + self.hh.bias.to(cd)
+        return gru_gates(gi, gh, h.to(cd), f).float()
+
+
+def gru_gates(gi: torch.Tensor, gh: torch.Tensor, h: torch.Tensor,
+               f: int) -> torch.Tensor:
+    """``torch.nn.GRUCell``'s gate math on the input and hidden gate
+    projections ``[r | z | n]`` (``modules.py:220-229``), in their
+    dtype."""
+    r = torch.sigmoid(gi[:, :f] + gh[:, :f])
+    z = torch.sigmoid(gi[:, f:2 * f] + gh[:, f:2 * f])
+    n = torch.tanh(gi[:, 2 * f:] + r * gh[:, 2 * f:])
+    return (1.0 - z) * n + z * h
 
 
 class TemporalAttentionLayer(nn.Module):
@@ -204,15 +242,25 @@ class TemporalAttentionLayer(nn.Module):
     ``[agg]``.  Without time encoding (``dim_time == 0``, DySAT,
     ``modules.py:336-365``) there is no ``TimeEncode``: Q is ``w_q([h_dst])``,
     or with no node input either a [B, D] block of ones in the compute
-    dtype with no ``w_q`` at all; K/V come from ``[h_src | edge feat]``."""
+    dtype with no ``w_q`` at all; K/V come from ``[h_src | edge feat]``.
+
+    ``attention_impl="xla_factorized"`` with at most 4 heads
+    (``modules.py:371-388``) runs :meth:`_attention_factorized` instead:
+    K and V are never formed, and the parameters are the same ``w_kv``.
+    ``"xla"`` and ``"pallas"`` both take the fused kernel."""
 
     def __init__(self, dim_node: int, dim_edge: int, dim_time: int,
                  dim_out: int, num_head: int, gen: torch.Generator,
                  compute_dtype: Optional[torch.dtype] = None,
-                 dropout: float = 0.0, att_dropout: float = 0.0):
+                 dropout: float = 0.0, att_dropout: float = 0.0,
+                 attention_impl: str = "xla"):
         super().__init__()
         if dim_out % num_head:
             raise ValueError("dim_out must be a multiple of num_head")
+        if attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"unknown attention_impl {attention_impl!r}")
+        self.factorized = attention_impl == "xla_factorized" \
+            and num_head <= 4
         self.dim_node, self.dim_time = dim_node, dim_time
         self.dim_out = dim_out
         self.num_head = num_head
@@ -254,9 +302,17 @@ class TemporalAttentionLayer(nn.Module):
         else:                 # neither node input nor time: Q is ones
             q = torch.ones((B, self.dim_out), device=dev,
                            dtype=self.compute_dtype or torch.float32)
-        kv = self.w_kv([h_src, ef, tf])
         D, H = self.dim_out, self.num_head
         dh = D // H
+        if self.factorized:
+            agg = self._attention_factorized(
+                q, [h_src, ef, tf], mfg.nbr_mask,
+                train and self.att_dropout > 0, generator)
+            rst = self.w_out([agg, h_dst] if self.dim_node > 0 else [agg])
+            if train:
+                rst = dropout(rst, self.dropout, generator)
+            return self.layer_norm(torch.relu(rst).float())
+        kv = self.w_kv([h_src, ef, tf])
         if train and self.att_dropout > 0:
             agg = self._attention_plain(q, kv, mfg.nbr_mask, generator)
         else:
@@ -286,18 +342,83 @@ class TemporalAttentionLayer(nn.Module):
         return (kv[..., D:] * att).sum(1)
 
 
+    def _attention_factorized(self, q, parts, mask, drop: bool,
+                              generator):
+        """``modules.py:448-501``: attention without forming K or V.  Per
+        head ``h`` and K/V input part ``x_p``, the score adds ``x_p ·
+        (q_h @ Wk_p_hᵀ)`` and the output ``(Σ_f a_h · x_p) @ Wv_p_h``; the
+        K bias adds ``q_h · bk_h`` to every score and the V bias ``(Σ_f
+        a_h) · bv_h``, which is 0 on a row with no valid neighbour.  The
+        parts, ``w_kv``'s kernel and bias and ``q`` are in the compute
+        dtype; scores go to f32 for the LeakyReLU(0.2) and the masked
+        softmax, whose weights (dropout when ``drop``) return to the
+        compute dtype.  Returns [B, D]."""
+        cd = self.compute_dtype or torch.float32
+        D, H = self.dim_out, self.num_head
+        dh = D // H
+        parts = [p.to(cd) for p in parts if p.shape[-1] > 0]
+        kernel, bias = self.w_kv.weights()
+        wk, wv, bk, bv = kernel[:, :D], kernel[:, D:], bias[:D], bias[D:]
+        q = q.to(cd)
+        aggs = []
+        for h in range(H):
+            lo, hi = h * dh, (h + 1) * dh
+            qh = q[:, lo:hi]                                     # [B, dh]
+            s = qh @ bk[lo:hi][:, None]                          # [B, 1]
+            off = 0
+            for p in parts:
+                d = p.shape[-1]
+                qt = qh @ wk[off:off + d, lo:hi].t()             # [B, d]
+                s = s + (p * qt[:, None, :]).sum(-1)             # [B, F]
+                off += d
+            s = torch.nn.functional.leaky_relu(s.float(), 0.2)
+            a = masked_softmax(s, mask, dim=1)
+            if drop:
+                a = dropout(a, self.att_dropout, generator)
+            a = a.to(cd)
+            agg = a.sum(1)[:, None] * bv[lo:hi]                  # [B, dh]
+            off = 0
+            for p in parts:
+                d = p.shape[-1]
+                xa = (p * a[:, :, None]).sum(1)                  # [B, d]
+                agg = agg + xa @ wv[off:off + d, lo:hi]
+                off += d
+            aggs.append(agg)
+        return torch.cat(aggs, -1)
+
+
 class EdgePredictor(nn.Module):
     """``out_fc(relu(src_fc(src) + dst_fc(dst)))`` over ``[src | pos |
-    neg]`` blocks (``modules.py:504-531``), in f32."""
+    neg]`` blocks (``modules.py:504-531``), in f32.  With ``neg_ratio``
+    r the input is ``[(2+r)·B, d]`` and the source block is tiled r times
+    against the ``r·B`` negatives: the negative logits are ``[r·B, 1]``."""
 
-    def __init__(self, dim_embed: int, gen: torch.Generator):
+    def __init__(self, dim_embed: int, gen: torch.Generator,
+                 neg_ratio: int = 1):
         super().__init__()
+        self.neg_ratio = int(neg_ratio)
         self.src_fc = Linear(dim_embed, dim_embed, gen)
         self.dst_fc = Linear(dim_embed, dim_embed, gen)
         self.out_fc = Linear(dim_embed, 1, gen)
 
     def forward(self, h: torch.Tensor):
-        b = h.shape[0] // 3
+        r = self.neg_ratio
+        b = h.shape[0] // (2 + r)
         s = self.src_fc(h[:b])
+        s_neg = s.repeat(r, 1) if r > 1 else s
         return (self.out_fc(torch.relu(s + self.dst_fc(h[b:2 * b]))),
-                self.out_fc(torch.relu(s + self.dst_fc(h[2 * b:]))))
+                self.out_fc(torch.relu(s_neg + self.dst_fc(h[2 * b:]))))
+
+
+class MLP(nn.Module):
+    """The node-classification head (``modules.py:534-544``):
+    ``fc2(relu(fc1(x)))``, in f32."""
+
+    def __init__(self, dim_in: int, dim_hid: int, num_class: int,
+                 gen: torch.Generator):
+        super().__init__()
+        self.fc1 = Linear(dim_in, dim_hid, gen)
+        self.fc2 = Linear(dim_hid, num_class, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(torch.relu(self.fc1(x)))

@@ -25,8 +25,13 @@ transposed.  The tree:
   ``fc_pool/{kernel,bias}``) or ``fc_neigh/{kernel,bias}`` (``gcn``);
   GAT: per layer ``l{l}h0``, ``fc/kernel`` [in, H·D] and ``attn_l``,
   ``attn_r`` [H, D]; both ``predictor/{fc0,fc1,fc2}/{kernel,bias}``
+- the node-classification ``MLP``: ``{fc1,fc2}/{kernel,bias}``
 
-The port names a layer ``layers.l{l}h{h}``.
+The port names a layer ``layers.l{l}h{h}``.  The factorized attention
+reads the same ``w_kv`` as the materialised one.  A tree of the old layout,
+with split ``w_k`` and ``w_v`` where ``w_kv`` now stands, loads with the
+pair fused column-wise, ``[K_k | K_v]``, as the JAX package's
+``migrate_params`` does on load (``utils/checkpoint.py:34-56``).
 """
 from __future__ import annotations
 
@@ -72,15 +77,31 @@ def _flax_path(name: str) -> tuple:
     return tuple(_FLAX_NAME.get(p, p) for p in parts)
 
 
+def _fuse_split_kv(tree: Mapping) -> dict:
+    """``tree`` with every split ``w_k``/``w_v`` pair (and no ``w_kv``
+    beside it) fused into ``w_kv``: kernels and biases concatenated along
+    their last axis, K first; other trees pass through."""
+    out = {k: _fuse_split_kv(v) if isinstance(v, Mapping) else v
+           for k, v in tree.items()}
+    if "w_k" in out and "w_v" in out and "w_kv" not in out:
+        wk, wv = out.pop("w_k"), out.pop("w_v")
+        out["w_kv"] = {n: np.concatenate([np.asarray(wk[n]),
+                                          np.asarray(wv[n])], axis=-1)
+                       for n in ("kernel", "bias")}
+    return out
+
+
 @torch.no_grad()
 def load_flax_params(model: nn.Module, tree: Mapping) -> None:
     """Copy a Flax parameter tree (nested dicts of numpy arrays) into
     ``model`` (a :class:`~gnnflow_tpu_torch.models.dgnn.DGNN`,
     :class:`~gnnflow_tpu_torch.models.static.SAGE` or ``GAT``) in place
-    and remake its compute-dtype weight copies.  Raises on a missing or extra
-    name or a shape mismatch."""
+    and remake its compute-dtype weight copies.  An old split ``w_k``/
+    ``w_v`` pair loads fused (:func:`_fuse_split_kv`).  Raises on a missing
+    or extra name or a shape mismatch."""
     params = dict(model.named_parameters())
-    flat = {_port_name(p): a for p, a in _flatten(tree).items()}
+    flat = {_port_name(p): a
+            for p, a in _flatten(_fuse_split_kv(tree)).items()}
     missing = sorted(set(params) - set(flat))
     extra = sorted(set(flat) - set(params))
     if missing or extra:
@@ -91,7 +112,8 @@ def load_flax_params(model: nn.Module, tree: Mapping) -> None:
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
         p.copy_(torch.tensor(np.asarray(arr, dtype=np.float32)))
-    model.cast_weights()
+    if hasattr(model, "cast_weights"):
+        model.cast_weights()
 
 
 def flax_param_tree(model: nn.Module) -> Dict[str, dict]:

@@ -14,6 +14,14 @@ Plain PyTorch, as the JAX function is XLA; :func:`apan_table_pull_ref`
 is the per-instance order (gather, then project) that the tests hold it
 against.  The JAX package carries the timestamps as bf16 byte lanes of
 its table (TPU layout); here they stay an f32 tensor beside it.
+
+Over memory sharded across the ranks of a process group
+(:func:`apan_table_pull_sharded`) no rank holds the table: each rank
+projects its own block of mailbox rows and serves the projected rows to
+the ranks that ask for them, through one routed exchange of the ids and
+one of the rows; in the backward pass the K/V gradients travel back to
+the rows' owners, and each rank takes the mail rows' ``dW`` of the rows
+it owns, which the data-parallel all-reduce of the gradients then sums.
 """
 from __future__ import annotations
 
@@ -69,6 +77,62 @@ def apan_table_pull(mem_cols: torch.Tensor, mails: torch.Tensor,
     and ``mail_ts_i [L, S]`` f32, exact."""
     return _TablePull.apply(mem_cols, mails, mail_ts, kernel_mail, nids,
                             compute_dtype or torch.float32)
+
+
+class _ShardedTablePull(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mem_cols, mails, mail_ts, kernel_mail, nids, cdt,
+                shard):
+        from gnnflow_tpu_torch.parallel.dist_context import Route
+        R, S, dr = mails.shape
+        f2 = kernel_mail.shape[1]
+        route = Route(torch.div(nids, shard.rows_per_rank,
+                                rounding_mode="floor"), shard.group)
+        req = route.send(nids) - shard.lo
+        kv = mails.reshape(R * S, dr).to(cdt) @ kernel_mail.to(cdt)
+        rows = torch.cat([mem_cols.to(cdt), kv.reshape(R, S * f2)], 1)[req]
+        dm = mem_cols.shape[1]
+        w = (dm + S * f2) * rows.element_size()
+        got = route.back(torch.cat([rows.view(torch.uint8),
+                                    mail_ts[req].view(torch.uint8)], 1))
+        rows = got[:, :w].contiguous().view(cdt)
+        ctx.save_for_backward(mails, req)
+        ctx.route, ctx.cdt = route, cdt
+        return (rows[:, :dm], rows[:, dm:].reshape(-1, S, f2),
+                got[:, w:].contiguous().view(torch.float32))
+
+    @staticmethod
+    def backward(ctx, _d_mem, d_kv, _d_ts):
+        mails, req = ctx.saved_tensors
+        dr, f2 = mails.shape[2], d_kv.shape[2]
+        # every rank sends its instances' K/V gradients to the rows'
+        # owners (a collective, so every rank runs it) and takes the dW
+        # of the rows it owns
+        got = ctx.route.send(d_kv.reshape(d_kv.shape[0], -1).contiguous())
+        x = mails.to(ctx.cdt)[req].reshape(-1, dr).float()
+        dW = x.t() @ got.reshape(-1, f2).float()
+        return None, None, None, dW, None, None, None
+
+
+def apan_table_pull_sharded(mem_cols: torch.Tensor, mails: torch.Tensor,
+                            mail_ts: torch.Tensor, kernel_mail: torch.Tensor,
+                            nids: torch.Tensor, shard,
+                            compute_dtype: Optional[torch.dtype] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """:func:`apan_table_pull` over memory sharded across a process group:
+    ``mem_cols``, ``mails`` and ``mail_ts`` are this rank's block of
+    rows, ``shard`` says where it lies (``group``, ``lo``,
+    ``rows_per_rank``: a
+    :class:`~gnnflow_tpu_torch.models.memory.MemoryShard`) and ``nids``
+    are global ids, in range.  A collective, forward and backward: every
+    rank calls it, with any number of ids.  Returns what
+    :func:`apan_table_pull` returns for ``nids``; the kernel's gradient
+    on each rank is that of the rows it owns, so the gradients' sum over
+    the ranks is the whole ``dW``."""
+    return _ShardedTablePull.apply(mem_cols, mails, mail_ts, kernel_mail,
+                                   nids, compute_dtype or torch.float32,
+                                   shard)
 
 
 def apan_table_pull_ref(mem_cols, mails, mail_ts, kernel_mail, nids,

@@ -121,14 +121,10 @@ class PartitionedDynamicGraph:
     except the placement: a partition's view lies on the rank's device."""
 
     _GRAPH_KEYS = ("initial_pool_size", "maximum_pool_size",
-                   "minimum_block_size", "spill_dir")
+                   "minimum_block_size", "blocks_to_preallocate",
+                   "insertion_policy", "adaptive_block_size", "spill_dir")
 
     def __init__(self, num_partitions: int, group=None, **graph_kwargs):
-        if str(graph_kwargs.get("insertion_policy", "insert")).lower() \
-                != "insert":
-            raise NotImplementedError(
-                "insertion_policy='replace' is not ported yet (ROADMAP.md, "
-                "modules to port, item 14)")
         self.num_partitions = int(num_partitions)
         self.group = group
         self.rank, self.world_size = group_rank(group), group_size(group)

@@ -7,8 +7,9 @@ the single-device step.  :func:`shard_trainer` keeps that meaning with one
 process per device:
 
 - **Slicing.** Rank r takes edges ``[r·B/W, (r+1)·B/W)`` of the global
-  batch, in the ``[src | dst | neg]`` layout of ``_pad_batch``
-  (``data.py:387``); B must divide by W (the scripts round it down).
+  batch, in each of the ``2 + r`` blocks of the ``[src | dst | neg]``
+  layout of ``_pad_batch`` (``data.py:387``); B must divide by W (the
+  scripts round it down).
 - **Loss and gradients.** ``link_pred_loss`` is a masked mean over the
   valid rows of the whole batch (``train.py:55-65``).  A padded last
   batch's valid rows are not spread evenly over the ranks, so each rank
@@ -19,8 +20,9 @@ process per device:
   ``DistributedDataParallel``, whose mean of per-rank means would weigh
   a short rank's rows wrongly.
 - **Memory write-back.** The write-back keeps the last occurrence in the
-  single-device order ``[src_all; dst_all]``, so each rank's rows are
-  all-gathered and put back in that order before one ``update_mem_mail``,
+  single-device order ``[src_all; dst_all; neg_all]``, so each rank's
+  rows are all-gathered and put back in that order, block by block,
+  before one ``update_mem_mail``,
   which writes every row of replicated memory, or a rank's own rows of
   sharded memory (:class:`~gnnflow_tpu_torch.parallel.
   partitioned_trainer.PartitionedTrainer`).
@@ -35,11 +37,9 @@ from __future__ import annotations
 import logging
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
-from gnnflow_tpu_torch.data import Batch
 from gnnflow_tpu_torch.parallel.dist_context import (all_gather_cat,
                                                      group_rank, group_size)
 
@@ -54,19 +54,21 @@ class DataParallel:
         self.rank = group_rank(group)
         self.world_size = group_size(group)
 
-    def local_batch(self, batch: Batch) -> Batch:
-        """This rank's slice of the global ``batch``."""
-        B, W = batch.batch_size, self.world_size
+    def local_arrays(self, arrays):
+        """This rank's slice of the global batch ``(target_nodes, ts, eids,
+        valid)`` (device tensors), in every one of its blocks."""
+        target_nodes, ts, eids, valid = arrays
+        B, W = valid.shape[0], self.world_size
         if B % W:
             raise ValueError(f"batch {B} does not divide over {W} ranks; "
                              "round it down to a multiple")
         b = B // W
         lo = self.rank * b
-        blocks = len(batch.target_nodes) // B
-        sel = (np.arange(blocks)[:, None] * B + lo + np.arange(b)).ravel()
-        return Batch(batch.target_nodes[sel], batch.ts[sel],
-                     batch.eids[lo: lo + b],
-                     int(np.clip(batch.num_valid - lo, 0, b)))
+        blocks = target_nodes.shape[0] // B
+        sel = (torch.arange(blocks, device=valid.device)[:, None] * B + lo
+               + torch.arange(b, device=valid.device)).reshape(-1)
+        return (target_nodes[sel], ts[sel], eids[lo: lo + b],
+                valid[lo: lo + b])
 
     def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         if dist.is_initialized():
@@ -108,14 +110,16 @@ class DataParallel:
     def gather_write_back(self, last: dict, eids: torch.Tensor,
                           valid: torch.Tensor):
         """The write-back's inputs for the global batch: every rank's
-        ``last_updated_*`` rows ``[src | dst | neg]`` in the single-device
-        order ``[src_all | dst_all | neg_all]``, and the global eids and
-        valid mask."""
+        ``last_updated_*`` rows ``[src | dst | neg]`` (``2 + r`` blocks of
+        the rank's ``len(eids)`` edges) in the single-device order
+        ``[src_all | dst_all | neg_all]``, and the global eids and valid
+        mask."""
         W = self.world_size
+        k = last["last_updated_nid"].shape[0] // eids.shape[0]
 
         def blocks(t):
             g = self.gather(t)
-            return g.reshape((W, 3, -1) + tuple(t.shape[1:])) \
+            return g.reshape((W, k, -1) + tuple(t.shape[1:])) \
                 .transpose(0, 1).reshape((-1,) + tuple(t.shape[1:]))
 
         return ({k: blocks(v) for k, v in last.items()},

@@ -5,7 +5,7 @@ or GAT on one card.
         --model TGN --data SYNTHETIC --epoch 3 [--device cpu]
 
 Counterpart of ``scripts/offline_edge_prediction.py`` (its CLI at
-``:43-93`` and its protocol at ``:123-381``, without ``lax.scan``):
+``:43-93`` and its protocol at ``:123-381``):
 chronological batches with a random
 epoch start, memory reset at every epoch after the first, validation AP
 and AUC after every epoch, a best-AP checkpoint with a memory backup,
@@ -37,9 +37,15 @@ the card.  ``--memory-storage bfloat16`` stores TGN's and APAN's memory
 and mails in bf16 (``:80-82, 165``).  After every epoch the cache's hit
 ratios are logged.  A store
 that the data config places on the host (GDELT, MAG) is sampled on the
-CPU and needs ``--cache``.  One flag is new: ``--device`` (``cuda`` by
-default, ``cpu`` for the plain PyTorch path).  Options the port lacks
-raise an error naming the ROADMAP.md item that brings them.
+CPU and needs ``--cache``.  ``--remat-attention`` recomputes each
+attention layer in the backward pass (``:136-137``).  ``--use-scan``
+(``:270-296``; not with ``--cache``) stages an epoch's batches on the
+device and trains them in one ``Trainer.train_steps_scan`` call, logging
+the last loss.  One flag is new: ``--device`` (``cuda`` by default,
+``cpu`` for the plain PyTorch path).  A model config with more than one
+negative per edge is refused with an error: the script draws one
+negative per edge, as JAX's, whose steps then fail on the roots'
+shapes (ROADMAP.md §3).
 
 ``--num-devices N`` trains data parallel over N ranks
 (:func:`~gnnflow_tpu_torch.parallel.dp.shard_trainer`; ``:163,
@@ -137,25 +143,16 @@ def make_parser() -> argparse.ArgumentParser:
                         help="store node memory and mails in bf16: half "
                              "the memory table's bytes, values rounded to "
                              "bf16")
-    parser.add_argument("--remat-attention", action="store_true")
-    parser.add_argument("--use-scan", action="store_true")
+    parser.add_argument("--remat-attention", action="store_true",
+                        help="recompute the attention layers in the "
+                             "backward pass (torch.utils.checkpoint)")
+    parser.add_argument("--use-scan", action="store_true",
+                        help="stage each epoch's batches on the device and "
+                             "train them in one train_steps_scan call")
     parser.add_argument("--device", default="cuda",
                         help="cuda (the kernels) or cpu (their plain "
                              "PyTorch versions)")
     return parser
-
-
-def _refuse_unported(parser, args) -> None:
-    """Options of the JAX script that the port lacks: an error naming the
-    ROADMAP.md item, never a silent default."""
-    unported = [
-        (args.remat_attention, "--remat-attention", "item 14"),
-        (args.use_scan, "--use-scan", "item 14"),
-    ]
-    for bad, what, item in unported:
-        if bad:
-            parser.error(f"{what}: not ported yet (ROADMAP.md, modules to "
-                         f"port, {item})")
 
 
 def _load_data(args):
@@ -188,7 +185,6 @@ def main(argv=None, checkpoint_path: Optional[str] = None) -> dict:
     spawns N ranks that run it and returns an empty dict."""
     parser = make_parser()
     args = parser.parse_args(argv)
-    _refuse_unported(parser, args)
     if args.features_on_host and not args.cache:
         parser.error("--features-on-host requires --cache (features "
                      "reach the model only through the cache buffer)")
@@ -219,6 +215,15 @@ def main(argv=None, checkpoint_path: Optional[str] = None) -> dict:
                                                        args.data.lower())
     if args.snapshot_time_window:
         model_config["snapshot_time_window"] = args.snapshot_time_window
+    if args.remat_attention:
+        model_config["remat_attention"] = True
+    if model_config.get("neg_sample_ratio", 1) != 1:
+        parser.error(
+            f"the {args.model} config has neg_sample_ratio="
+            f"{model_config['neg_sample_ratio']}, but this script draws one "
+            "negative per edge (get_batches without neg_sample_ratio, as "
+            "the JAX script's); train such a model through Trainer with "
+            "get_batches(..., neg_sample_ratio=r)")
     train_data, val_data, test_data, full_data, node_feats, edge_feats, \
         dname = _load_data(args)
     logging.info("dataset %s: %d train / %d val / %d test edges",
@@ -335,6 +340,19 @@ def main(argv=None, checkpoint_path: Optional[str] = None) -> dict:
             memory_lib.reset_memory(state.memory)
         batches = get_batches(train_data, batch_size, train_neg,
                               num_chunks=args.num_chunks, rng=rng)
+        if args.use_scan and cache is None:
+            # stage the epoch's batches on the device, train in one call
+            with timer("stage"):
+                staged = list(batches)
+                total_samples = 3 * sum(b.num_valid for b in staged)
+                arrays = [torch.stack(t) for t in
+                          zip(*map(trainer.batch_arrays, staged))]
+            with timer("train"):
+                state, losses = trainer.train_steps_scan(
+                    state, dg, efs, *arrays, node_feats=nfs)
+                logging.info("epoch %d: %d steps, last loss %.4f", epoch,
+                             len(staged), float(losses[-1]))
+            batches = []
         if cache is not None and args.pipeline:
             # batch k+1's sample and fetch overlap batch k's step
             batches = FeaturePipeline(sampler, cache, depth=2).run(batches)

@@ -36,13 +36,18 @@ class TemporalSampler:
     every root at ``STATIC_TS``.  ``compact_factor="auto"`` is 0.25 for
     windowed multi-snapshot configs and None otherwise
     (``temporal_sampler.py:44-50``); it changes how deeper layers are
-    sampled, not the MFGs."""
+    sampled, not the MFGs.  ``neg_sample_ratio``, which the DGNN
+    family's trainer kwargs carry, is accepted and ignored, as JAX's
+    sampler takes it with its ``**kwargs``: the roots carry the
+    negatives."""
 
     def __init__(self, graph: DynamicGraph, fanouts: List[int],
                  sample_strategy: str = "recent", num_snapshots: int = 1,
                  snapshot_time_window: float = 0.0, prop_time: bool = False,
                  seed: int = 1234, is_static: bool = False,
-                 compact_factor="auto", device="cuda"):
+                 compact_factor="auto", device="cuda",
+                 neg_sample_ratio: int = 1):
+        del neg_sample_ratio        # a trainer kwarg; sampling ignores it
         sample_strategy = sample_strategy.lower()
         if sample_strategy not in ("recent", "uniform"):
             raise ValueError("strategy must be 'recent' or 'uniform'")

@@ -4,14 +4,17 @@ link prediction.
 Counterpart of ``gnnflow_tpu/train.py``: ``link_pred_loss``
 (``:49-65``), ``_gather_rows`` and ``fetch_features`` (``:92-137``), and a
 ``Trainer`` with ``init_state``, ``train_step``, ``eval_step`` and
-``embed_step`` (``:1200-1265, 1371-1417``).  A step samples the batch roots'
+``embed_step`` (``:1200-1265, 1371-1417``), with ``train_step_arrays``
+and ``train_steps_scan`` (``:1341-1370``) on batches already on the
+device.  A step samples the batch roots'
 neighbours over every layer (most recent or uniform; static models at the
 timestamp ``3.4e38``), gathers edge and node features, pulls memory rows
 (TGN, APAN), runs the model (GRU or transformer memory update, temporal
 attention layers, edge predictor; or the static layers and their
-predictor) and computes the loss; a train step then back-propagates and
-takes an Adam step; with memory, both write memory and mails back,
-computed with the parameters from before the step.
+predictor) and computes the loss over ``r`` negatives per edge; a train
+step then back-propagates and takes an optimizer step (Adam by default);
+with memory, both write memory and mails back, computed with the
+parameters from before the step.
 PyTorch runs eagerly, so there is no ``jit``.
 
 Three exact fast paths are ported, each a Python branch on a count where
@@ -44,8 +47,9 @@ A step takes the snapshot dedup, then the block compaction, then the
 layer dedup, then the padded path, the first that is set
 (``:1209-1236``).  ``train_step_prefetched`` (``:1267-1339``) is the
 feature cache's step: it takes MFGs sampled outside it and features a
-cache fetched, and runs only the memory dedup.  The GRU-table path is an
-opt-in variant not ported yet (ROADMAP.md).
+cache fetched, and runs only the memory dedup.  ``gru_table`` gives the
+GRU memory updater the raw state, from which it projects the gates once
+per node (``train.py:242-258, 848-850``).
 """
 from __future__ import annotations
 
@@ -114,16 +118,22 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor):
 
 
 def link_pred_loss(pos: torch.Tensor, neg: torch.Tensor,
-                   valid: torch.Tensor,
-                   num_valid: Optional[int] = None) -> torch.Tensor:
-    """Masked ``mean(BCE(pos, 1)) + mean(BCE(neg, 0))`` over valid rows;
-    ``num_valid`` (a data-parallel rank's share of a global batch) divides
-    the masked sums by the global batch's valid count instead."""
+                   valid: torch.Tensor, neg_ratio: int = 1,
+                   num_valid: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """Masked ``mean(BCE(pos, 1)) + mean(BCE(neg, 0))`` over valid rows
+    (``train.py:55-65``); ``neg`` holds ``neg_ratio`` negatives per
+    positive ([r·B, 1]), masked as their edge.  ``num_valid`` (a
+    data-parallel rank's share of a global batch: the global batch's
+    valid count, a tensor) divides the masked sums instead of the rank's
+    own count."""
     w = valid.float()[:, None]
-    denom = w.sum().clamp_min(1.0) if num_valid is None \
-        else w.new_tensor(float(max(num_valid, 1)))
+    wn = w.repeat(neg_ratio, 1) if neg_ratio > 1 else w
+    denom = (w.sum() if num_valid is None else num_valid.float()) \
+        .clamp_min(1.0)
     return (bce_with_logits(pos, torch.ones_like(pos)) * w).sum() / denom \
-        + (bce_with_logits(neg, torch.zeros_like(neg)) * w).sum() / denom
+        + (bce_with_logits(neg, torch.zeros_like(neg)) * wn).sum() \
+        / (denom * neg_ratio)
 
 
 def _gather_rows(table, ids: torch.Tensor, valid: torch.Tensor,
@@ -269,7 +279,11 @@ def _uniq_pairs_frac(layer: Sequence[MFG]) -> float:
 class Trainer:
     """Runs train and eval steps of a :class:`DGNN`, :class:`SAGE` or
     :class:`GAT` over a :class:`DeviceGraph`.  The optimizer is Adam at
-    ``lr`` with optax's defaults (``train.py:262``).
+    ``lr`` with optax's defaults (``train.py:262``), or ``optimizer(params)``
+    where given: a callable from the model's parameters to a
+    ``torch.optim.Optimizer``.  ``neg_sample_ratio`` is the negatives per
+    edge and must be the model's (``train.py:263-269``); a batch then holds
+    ``(2 + r)·B`` roots.
 
     ``fanouts`` has one entry per model layer, outermost first;
     ``sample_strategy`` is ``"recent"`` or ``"uniform"`` (draws from the
@@ -296,9 +310,15 @@ class Trainer:
     :meth:`calibrate` measures the stream, which the first
     :meth:`train_step` does; the dedups stay off until then.  An explicit
     value, ``None`` included, is a decision calibration keeps
-    (``train.py:165-218, 271-286``).  ``memory_storage="bfloat16"`` stores
-    memory and mails in bf16 (``train.py:264, 396``): half the memory
-    table's bytes, values rounded to bf16 at the write-back."""
+    (``train.py:165-218, 271-286``).  ``auto_calibrate`` (``"auto"``: when
+    a knob is left to it) says whether the first :meth:`train_step`
+    calibrates; False keeps the knobs at their defaults.
+    ``memory_storage="bfloat16"`` stores memory and mails in bf16
+    (``train.py:264, 396``): half the memory table's bytes, values rounded
+    to bf16 at the write-back.  ``gru_table`` (``"auto"``: off, as in JAX)
+    runs the GRU memory updater on the per-node gate table where the node
+    table is at most twice the instances (``train.py:242-258,
+    848-850``); it needs memory, the GRU updater and one mail slot."""
 
     def __init__(self, model: DGNN, *, fanouts, sample_strategy="recent",
                  num_snapshots: int = 1, snapshot_time_window: float = 0.0,
@@ -306,7 +326,9 @@ class Trainer:
                  compact_factor="auto", dedup_factor="auto",
                  model_compact="auto", layer_dedup="auto",
                  apan_table="auto", is_static: bool = False,
-                 memory_storage: str = "float32", device="cuda"):
+                 memory_storage: str = "float32", device="cuda",
+                 optimizer=None, neg_sample_ratio: int = 1,
+                 gru_table="auto", auto_calibrate="auto"):
         self.fanouts = tuple(int(f) for f in fanouts)
         if len(self.fanouts) != model.num_layers:
             raise ValueError(f"{len(self.fanouts)} fanouts for a model of "
@@ -328,6 +350,22 @@ class Trainer:
         self.is_static = bool(is_static)
         self.model = model
         self.lr = lr
+        self.optimizer = optimizer
+        self.neg_ratio = int(neg_sample_ratio)
+        model_ratio = int(getattr(model, "neg_sample_ratio", 1))
+        if model_ratio != self.neg_ratio:
+            raise ValueError(f"model neg_sample_ratio={model_ratio} != "
+                             f"trainer neg_sample_ratio={self.neg_ratio}")
+        self.gru_table = False if gru_table == "auto" else bool(gru_table)
+        if self.gru_table and (
+                not model.use_memory
+                or getattr(model, "memory_updater", "gru") != "gru"
+                or getattr(model, "mailbox_slots", 1) != 1):
+            raise ValueError(
+                "gru_table requires use_memory with the GRU updater and "
+                "a single-slot mailbox (the per-node gate pre-projection "
+                "is GRU math; APAN's transformer updater and multi-slot "
+                "mailboxes have no table form)")
         self.device = resolve_device(device)
         self._auto = {"compact": compact_factor == "auto",
                       "dedup": dedup_factor == "auto",
@@ -353,11 +391,13 @@ class Trainer:
                              "SAGE or GAT of two or more layers")
         # the data-parallel collectives (parallel/dp.py), None on one device
         self.dp = None
-        self._calibrated = not (
-            (windowed and (self._auto["compact"]
-                           or self._auto["layer_dedup"]))
-            or (model.use_memory and self._auto["dedup"])
-            or (self._layer_dedup_ok() and self._auto["layer_dedup"]))
+        if auto_calibrate == "auto":
+            auto_calibrate = (
+                (windowed and (self._auto["compact"]
+                               or self._auto["layer_dedup"]))
+                or (model.use_memory and self._auto["dedup"])
+                or (self._layer_dedup_ok() and self._auto["layer_dedup"]))
+        self._calibrated = not auto_calibrate
         self.calibration: Optional[dict] = None
 
     def _windowed(self) -> bool:
@@ -378,7 +418,7 @@ class Trainer:
 
     def init_state(self, num_nodes: int, seed: int = 0) -> TrainState:
         """Zero memory for ``num_nodes`` nodes and the model's mail slots
-        (models with memory), a fresh Adam state, a dropout generator
+        (models with memory), a fresh optimizer state, a dropout generator
         seeded with ``seed`` and a sampling generator seeded with
         ``SAMPLE_SEED_OFFSET + seed``, on the trainer's device."""
         memory = None
@@ -387,7 +427,9 @@ class Trainer:
         return TrainState(
             memory=memory,
             optimizer=torch.optim.Adam(self.model.parameters(), lr=self.lr,
-                                       betas=(0.9, 0.999), eps=1e-8),
+                                       betas=(0.9, 0.999), eps=1e-8)
+            if self.optimizer is None
+            else self.optimizer(self.model.parameters()),
             dropout_gen=torch.Generator(device=self.device).manual_seed(seed),
             sample_gen=torch.Generator(device=self.device).manual_seed(
                 SAMPLE_SEED_OFFSET + seed),
@@ -550,18 +592,23 @@ class Trainer:
         compact input, with the node-feature table, when ``dedup`` and the
         factor are set and the batch's unique pairs fit its cap; else the
         raw state for the transformer updater's table path
-        (``apan_table``; not over a sharded or bf16-stored state, which
-        takes the per-instance pull, as JAX's packed state does,
-        ``:842``); else the per-instance pull, in bf16 under bf16 compute
-        when the node table is small next to the instance count or is
-        stored in bf16 (``:851-858``; timestamps stay f32).  With
-        ``dedup``, records the unique count in ``state.dedup_n_uniq``.
+        (``apan_table``, the sharded table over sharded memory; not over
+        a bf16-stored state, which takes the per-instance pull, as JAX's
+        packed state does, ``:842``); else the raw state for the GRU's
+        gate table (``gru_table``, one mail slot, a node table at most
+        twice the instances, ``:848-850``; not over a sharded state,
+        which no rank holds whole); else the per-instance pull, in bf16
+        under bf16 compute when the node table is small next to the
+        instance count or is stored in bf16 (``:851-858``; timestamps stay
+        f32).  With ``dedup``, records the unique count in
+        ``state.dedup_n_uniq``.
 
         Over sharded memory or node features every pull is a collective,
         and ranks may take different branches here (each counts its own
         slice's pairs): both branches pull memory once, then node features
-        once (the dedup's inside the updater), so the ranks stay in
-        step."""
+        once (the dedup's inside the updater), APAN's through its K/V
+        table on both or on neither (which adds one exchange in the
+        backward pass), so the ranks stay in step."""
         memory = state.memory
         if dedup:
             state.dedup_n_uniq = None
@@ -575,9 +622,14 @@ class Trainer:
                 return memory_lib.DedupMemoryInput(
                     state=memory, uniq_nids=uniq_nid, uniq_ts=uniq_ts,
                     inv=inv, sidx=sidx, rank_sorted=rank_sorted,
-                    node_feats=node_feats)
+                    node_feats=node_feats,
+                    table=self.apan_table or memory.shard is None)
         if self.apan_table and self.model.memory_updater == "transformer" \
                 and memory_lib.table_ok(memory):
+            return memory_lib.RawMemoryInput(memory)
+        if self.gru_table and memory.mailbox_slots == 1 \
+                and memory.shard is None \
+                and memory.num_nodes <= 2 * mfg.num_all:
             return memory_lib.RawMemoryInput(memory)
         if self.model.compute_dtype == "bfloat16" \
                 and (memory.storage == "bfloat16"
@@ -585,13 +637,35 @@ class Trainer:
             return memory_lib.prepare_input(memory, mfg, torch.bfloat16)
         return memory_lib.prepare_input(memory, mfg)
 
+    def batch_arrays(self, batch: Batch):
+        """``(target_nodes, ts, eids, valid)`` of ``batch`` on the
+        trainer's device; ``valid`` [B] masks padded rows."""
+        dev = self.device
+        valid = torch.zeros(batch.batch_size, dtype=torch.bool)
+        valid[: batch.num_valid] = True
+        return (torch.from_numpy(batch.target_nodes).to(dev),
+                torch.from_numpy(batch.ts).to(dev),
+                torch.from_numpy(batch.eids).to(dev), valid.to(dev))
+
+    def _check_roots(self, target_nodes: torch.Tensor,
+                     valid: torch.Tensor) -> None:
+        blocks = 2 + self.neg_ratio
+        if target_nodes.shape[-1] != blocks * valid.shape[-1]:
+            raise ValueError(
+                f"a batch of {valid.shape[-1]} edges has "
+                f"{target_nodes.shape[-1]} roots, but neg_sample_ratio="
+                f"{self.neg_ratio} needs {blocks}·B: draw the batches with "
+                f"get_batches(..., neg_sample_ratio={self.neg_ratio})")
+
     @torch.no_grad()
     def _inputs(self, state: TrainState, dg: DeviceGraph,
-                edge_feats: Optional[torch.Tensor], batch: Batch,
+                edge_feats: Optional[torch.Tensor], batch,
                 train: bool = False,
                 node_feats: Optional[torch.Tensor] = None):
-        """Sample, gather edge features and pull memory rows for a batch:
-        ``(mfgs, efs, mem_input, eids, valid, expansions)``; ``mem_input``
+        """Sample, gather edge features and pull memory rows for a batch (a
+        :class:`Batch`, or ``(target_nodes, ts, eids, valid)`` on the
+        device): ``(mfgs, efs, mem_input, eids, valid, expansions)``;
+        ``mem_input``
         is None without memory, ``expansions`` None on the padded path.
         Edge features are not gathered for a model without them: the JAX
         step drops that gather as dead code.
@@ -601,15 +675,11 @@ class Trainer:
         kept in ``state.last_take``, and a train batch counts it in
         ``state.tier_takes`` (a data-parallel step counts the worst
         rank's, after its all-reduce)."""
-        dev = self.device
-        target_nodes = torch.from_numpy(batch.target_nodes).to(dev)
-        ts = torch.from_numpy(batch.ts).to(dev)
+        target_nodes, ts, eids, valid = self.batch_arrays(batch) \
+            if isinstance(batch, Batch) else batch
+        self._check_roots(target_nodes, valid)
         if self.is_static:
             ts = torch.full_like(ts, STATIC_SAMPLE_TS)
-        eids = torch.from_numpy(batch.eids).to(dev)
-        valid = torch.zeros(batch.batch_size, dtype=torch.bool)
-        valid[: batch.num_valid] = True
-        valid = valid.to(dev)
         expansions, take = None, None
         state.layer_dedup_n_uniq, state.layer_dedup_compact = None, 0
         state.block_compact = 0
@@ -644,11 +714,23 @@ class Trainer:
         return fetch_node_features(mfgs, node_feats,
                                    self.model.node_feat_dtype(train))
 
+    def _root_rows(self, last: dict, valid: torch.Tensor) -> dict:
+        """The updater's dst rows of the batch roots, the first ``(2 +
+        r)·B``.  With memory over one layer they are all of them; over
+        more, the innermost MFG's dst rows are the next layer's instances,
+        whose first rows are the roots.  JAX hands all of them to
+        ``update_mem_mail``, which then fails on their shapes
+        (``memory.py:766-776``); the port writes back the roots, the rows
+        a one-layer model writes back (ROADMAP.md §3)."""
+        n = (2 + self.neg_ratio) * valid.shape[0]
+        return {k: v[:n] for k, v in last.items()}
+
     @torch.no_grad()
     def _write_back(self, state: TrainState, last, edge_feats, eids,
                     valid) -> None:
         if last is None:                   # a model without memory
             return
+        last = self._root_rows(last, valid)
         if self.dp is not None:
             last, eids, valid = self.dp.gather_write_back(last, eids, valid)
         # target-edge features for the mails
@@ -656,7 +738,7 @@ class Trainer:
         memory_lib.update_mem_mail(
             state.memory, last["last_updated_nid"],
             last["last_updated_memory"], last["last_updated_ts"],
-            edge_feats=tef, valid=valid)
+            edge_feats=tef, valid=valid, neg_sample_ratio=self.neg_ratio)
 
     def train_step(self, state: TrainState, dg: DeviceGraph,
                    edge_feats: Optional[torch.Tensor], batch: Batch, *,
@@ -671,18 +753,71 @@ class Trainer:
         The first call calibrates the knobs left to it (the JAX
         ``train_step``; ``eval_step`` never calibrates).
 
-        Returns ``(state, loss, pos_logits [B], neg_logits [B])``,
+        Returns ``(state, loss, pos_logits [B], neg_logits [r·B])``,
         detached."""
         self._maybe_auto_calibrate(dg, batch.target_nodes, batch.ts)
-        part = batch if self.dp is None else self.dp.local_batch(batch)
+        return self._train(state, dg, edge_feats, self.batch_arrays(batch),
+                           node_feats)
+
+    def train_step_arrays(self, state: TrainState, dg: DeviceGraph,
+                          edge_feats: Optional[torch.Tensor],
+                          target_nodes: torch.Tensor, ts: torch.Tensor,
+                          eids: torch.Tensor, valid: torch.Tensor, *,
+                          train: bool = True,
+                          node_feats: Optional[torch.Tensor] = None):
+        """:meth:`train_step` (or with ``train=False`` :meth:`eval_step`)
+        on a batch already on the device (``train.py:1341-1348``):
+        ``target_nodes`` and ``ts`` [(2+r)·B], ``eids`` and the bool
+        ``valid`` [B]; no host conversion of the batch.  A train step
+        calibrates first where :meth:`train_step` would (one copy of the
+        roots and timestamps to the host, once)."""
+        arrays = (target_nodes, ts, eids, valid)
+        if not train:
+            return self.eval_step(state, dg, edge_feats, arrays,
+                                  node_feats=node_feats)
+        if not self._calibrated:
+            self._maybe_auto_calibrate(dg, target_nodes.cpu().numpy(),
+                                       ts.cpu().numpy())
+        return self._train(state, dg, edge_feats, arrays, node_feats)
+
+    def train_steps_scan(self, state: TrainState, dg: DeviceGraph,
+                         edge_feats: Optional[torch.Tensor],
+                         target_nodes: torch.Tensor, ts: torch.Tensor,
+                         eids: torch.Tensor, valid: torch.Tensor, *,
+                         node_feats: Optional[torch.Tensor] = None):
+        """K train steps in one call over batches staged on the device
+        with a leading step axis (``train.py:1350-1369``):
+        ``target_nodes`` and ``ts`` [K, (2+r)·B], ``eids`` and ``valid``
+        [K, B].  PyTorch runs eagerly, so this is a loop of
+        :meth:`train_step_arrays` steps with no per-step host conversion,
+        calibrating on the first step's batch as JAX's ``lax.scan`` does;
+        each step equals :meth:`train_step` on the same batch, bit for
+        bit.  Returns ``(state, losses [K])``."""
+        if not self._calibrated:
+            self._maybe_auto_calibrate(dg, target_nodes[0].cpu().numpy(),
+                                       ts[0].cpu().numpy())
+        losses = []
+        for k in range(target_nodes.shape[0]):
+            state, loss, _, _ = self._train(
+                state, dg, edge_feats,
+                (target_nodes[k], ts[k], eids[k], valid[k]), node_feats)
+            losses.append(loss)
+        return state, torch.stack(losses)
+
+    def _train(self, state: TrainState, dg: DeviceGraph, edge_feats,
+               arrays, node_feats):
+        """One train step on ``(target_nodes, ts, eids, valid)`` of the
+        global batch on the device."""
+        part, num_valid = arrays, None
+        if self.dp is not None:
+            part, num_valid = self.dp.local_arrays(arrays), arrays[3].sum()
         mfgs, efs, mem_input, eids, valid, expansions = self._inputs(
             state, dg, edge_feats, part, train=True, node_feats=node_feats)
         nfs = self._node_inputs(mfgs, mem_input, node_feats, True)
         pos, neg, last = self.model(mfgs, efs, mem_input, train=True,
                                     generator=state.dropout_gen,
                                     expansions=expansions, node_feats=nfs)
-        loss = link_pred_loss(pos, neg, valid,
-                              None if self.dp is None else batch.num_valid)
+        loss = link_pred_loss(pos, neg, valid, self.neg_ratio, num_valid)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         if self.dp is not None:
@@ -697,11 +832,14 @@ class Trainer:
         return (state, loss.detach()) + self._logits(pos, neg)
 
     def _logits(self, pos: torch.Tensor, neg: torch.Tensor):
-        """``(pos [B], neg [B])`` of the whole batch, detached: gathered
-        over the ranks of a data-parallel step."""
+        """``(pos [B], neg [r·B])`` of the whole batch, detached: gathered
+        over the ranks of a data-parallel step, each of the ``r`` negative
+        blocks in the single-device order."""
         pos, neg = pos[:, 0].detach(), neg[:, 0].detach()
         if self.dp is not None:
             pos, neg = self.dp.gather(pos), self.dp.gather(neg)
+            neg = neg.reshape(self.dp.world_size, self.neg_ratio, -1) \
+                .transpose(0, 1).reshape(-1)
         return pos, neg
 
     def train_step_prefetched(self, state: TrainState, mfgs, nfs, efs, tef,
@@ -748,7 +886,7 @@ class Trainer:
             pos, neg, last = self.model(mfgs, efs, mem_input, train=train,
                                         generator=state.dropout_gen,
                                         node_feats=node_in)
-            loss = link_pred_loss(pos, neg, valid)
+            loss = link_pred_loss(pos, neg, valid, self.neg_ratio)
         if train:
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
@@ -756,30 +894,36 @@ class Trainer:
             self.model.cast_weights()
             state.step += 1
         if last is not None:
+            last = self._root_rows(last, valid)
             with torch.no_grad():
                 memory_lib.update_mem_mail(
                     state.memory, last["last_updated_nid"],
                     last["last_updated_memory"], last["last_updated_ts"],
-                    edge_feats=tef, valid=valid)
+                    edge_feats=tef, valid=valid,
+                    neg_sample_ratio=self.neg_ratio)
         return state, loss.detach(), pos[:, 0].detach(), neg[:, 0].detach()
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, dg: DeviceGraph,
-                  edge_feats: Optional[torch.Tensor], batch: Batch, *,
+                  edge_feats: Optional[torch.Tensor], batch, *,
                   node_feats: Optional[torch.Tensor] = None):
         """One eval step, on the layer dedup where it is set, as the JAX
         ``_step`` (``train.py:1227-1233``); updates ``state.memory`` in
-        place.
+        place.  ``batch`` is a :class:`Batch` or ``(target_nodes, ts,
+        eids, valid)`` on the device.
 
-        Returns ``(state, loss, pos_logits [B], neg_logits [B])``."""
-        part = batch if self.dp is None else self.dp.local_batch(batch)
+        Returns ``(state, loss, pos_logits [B], neg_logits [r·B])``."""
+        arrays = self.batch_arrays(batch) if isinstance(batch, Batch) \
+            else batch
+        part, num_valid = arrays, None
+        if self.dp is not None:
+            part, num_valid = self.dp.local_arrays(arrays), arrays[3].sum()
         mfgs, efs, mem_input, eids, valid, expansions = self._inputs(
             state, dg, edge_feats, part, node_feats=node_feats)
         nfs = self._node_inputs(mfgs, mem_input, node_feats, False)
         pos, neg, last = self.model(mfgs, efs, mem_input,
                                     expansions=expansions, node_feats=nfs)
-        loss = link_pred_loss(pos, neg, valid,
-                              None if self.dp is None else batch.num_valid)
+        loss = link_pred_loss(pos, neg, valid, self.neg_ratio, num_valid)
         if self.dp is not None:
             loss = self.dp.reduce_loss(loss)
         self._write_back(state, last, edge_feats, eids, valid)

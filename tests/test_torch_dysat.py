@@ -583,7 +583,8 @@ def test_build_model_dysat():
                             172, seed=1, device="cpu")
     assert kw == {"fanouts": [10, 10], "sample_strategy": "uniform",
                   "num_snapshots": 3, "snapshot_time_window": 10000,
-                  "prop_time": True, "is_static": False}
+                  "prop_time": True, "is_static": False,
+                  "neg_sample_ratio": 1}
     assert sorted(model.layers) == [f"l{l}h{h}" for l in range(2)
                                     for h in range(3)]
     for h in range(3):

@@ -123,22 +123,33 @@ def test_build_dynamic_graph_from_data_configs():
     _, gdelt = config.get_default_config("tgn", "gdelt")
     assert build_dynamic_graph(**{**gdelt, "initial_pool_size": 4096}
                                ).placement == "host"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_dynamic_graph(**{**data_cfg, "insertion_policy": "replace"})
+    # the REPLACE policy reaches the store (held to JAX's in
+    # tests/test_torch_variants.py)
+    g = build_dynamic_graph(**{**data_cfg, "insertion_policy": "replace"})
+    assert g.insertion_policy == "replace"
 
 
 @pytest.mark.parametrize("name, change", [
-    pytest.param("dysat", {"neg_sample_ratio": 2}, id="dysat"),   # item 5
-    pytest.param("apan", {"dim_time": 0}, id="apan"),             # item 14
+    pytest.param("dysat", {"neg_sample_ratio": 2}, id="dysat"),
+    pytest.param("apan", {"dim_time": 0}, id="apan"),
     pytest.param("graphsage", {"neg_sample_ratio": 2}, id="graphsage"),
     pytest.param("gat", {"neg_sample_ratio": 3}, id="gat")])
 def test_build_model_names_the_roadmap_item(name, change):
-    """Configurations still to port raise naming their ROADMAP.md item;
-    node features (item 10, ported) no longer do."""
+    """Configurations that earlier slices refused build as JAX's factory
+    builds them, with the same trainer kwargs: the DGNN family carries the
+    negatives per edge to its predictor and its trainer, GraphSAGE and
+    static GAT are built without them (``static.py:184, 238``), and APAN
+    without time encoding has no updater time encoding."""
+    from gnnflow_tpu.models.factory import build_model as jbuild_model
     cfg, _ = config.get_default_config(name, "synthetic")
-    build_model(name, cfg, 4, 6, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(name, {**cfg, **change}, 4, 6, device="cpu")
+    model, kw = build_model(name, {**cfg, **change}, 4, 6, device="cpu")
+    jmodel, jkw = jbuild_model(name, {**cfg, **change}, 4, 6)
+    assert kw == jkw
+    assert getattr(model, "neg_sample_ratio", 1) == \
+        getattr(jmodel, "neg_sample_ratio", 1)
+    Trainer(model, device="cpu", **kw)
+    if name == "apan":
+        assert not hasattr(model.updater, "time_enc")
 
 
 def test_build_model_tgn():
@@ -146,11 +157,12 @@ def test_build_model_tgn():
     model, kw = build_model("TGN", cfg, 0, 6, seed=1, device="cpu")
     assert kw == {"fanouts": [10], "sample_strategy": "recent",
                   "num_snapshots": 1, "snapshot_time_window": 0,
-                  "prop_time": False, "is_static": False}
+                  "prop_time": False, "is_static": False,
+                  "neg_sample_ratio": 1}
     assert model.dim_memory == 100
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("tgn", {**cfg, "neg_sample_ratio": 2}, 0, 6,
-                    device="cpu")
+    model, kw = build_model("tgn", {**cfg, "neg_sample_ratio": 2}, 0, 6,
+                            device="cpu")
+    assert kw["neg_sample_ratio"] == model.edge_predictor.neg_ratio == 2
 
 
 def test_build_model_apan():
@@ -158,7 +170,8 @@ def test_build_model_apan():
     model, kw = build_model("APAN", cfg, 0, 6, seed=1, device="cpu")
     assert kw == {"fanouts": [10], "sample_strategy": "recent",
                   "num_snapshots": 1, "snapshot_time_window": 0,
-                  "prop_time": False, "is_static": False}
+                  "prop_time": False, "is_static": False,
+                  "neg_sample_ratio": 1}
     assert (model.memory_updater, model.mailbox_slots) == ("transformer", 10)
     trainer = Trainer(model, device="cpu", **kw)
     assert trainer.apan_table
@@ -168,10 +181,38 @@ def test_build_model_apan():
 
 
 @pytest.mark.parametrize("flags", [["--remat-attention"], ["--use-scan"]])
-def test_entry_refuses_unported_flags(flags, capsys):
+def test_entry_refuses_unported_flags(flags, tmp_path, caplog):
+    """The flags an earlier slice refused run: ``--remat-attention``
+    recomputes the attention layers, ``--use-scan`` trains each epoch's
+    staged batches in one ``train_steps_scan`` call and logs the last
+    loss (both held to the plain steps bit for bit in
+    tests/test_torch_variants.py)."""
+    with caplog.at_level(logging.INFO):
+        out = entry.main(["--model", "TGN", "--data", "SYNTHETIC",
+                          "--epoch", "1", "--synthetic-edges", "800",
+                          "--synthetic-dim-edge", "16", "--num-chunks", "1",
+                          "--device", "cpu", *flags],
+                         checkpoint_path=str(tmp_path / "TGN_torch.ckpt"))
+    for v in out["val_ap"] + [out["test_ap"]]:
+        assert 0.0 < v <= 1.0
+    msgs = [r.getMessage() for r in caplog.records]
+    assert any("last loss" in m for m in msgs) == (flags == ["--use-scan"])
+
+
+def test_entry_refuses_a_config_with_more_negatives(monkeypatch, capsys):
+    """The script draws one negative per edge, as JAX's, whose steps then
+    fail on the roots' shapes; a config with more says so."""
+    real = config.get_default_config
+
+    def more_negatives(*a, **k):
+        model_cfg, data_cfg = real(*a, **k)
+        return {**model_cfg, "neg_sample_ratio": 3}, data_cfg
+
+    monkeypatch.setattr(entry, "get_default_config", more_negatives)
     with pytest.raises(SystemExit):
-        entry.main(["--model", "TGN", "--data", "SYNTHETIC", *flags])
-    assert "ROADMAP.md" in capsys.readouterr().err
+        entry.main(["--model", "TGN", "--data", "SYNTHETIC",
+                    "--device", "cpu"])
+    assert "neg_sample_ratio=3" in capsys.readouterr().err
 
 
 def test_entry_passes_memory_storage(monkeypatch):

@@ -19,7 +19,9 @@ training over two gloo ranks, against the JAX package.
   (``shard_trainer``) and on ``PartitionedTrainer`` (routed, P = 4 over
   W = 2, memory sharded over the ranks and gathered for the check):
   losses, logits, parameters and memory held to JAX's ``Trainer``
-  within 1e-5 (f32 sum order; timestamps exact); TGAT on the layer dedup
+  within 1e-5 (f32 sum order; timestamps exact); data parallel at three
+  negatives per edge against the one-device trainer, within 1e-5; TGAT
+  on the layer dedup
   in a step where rank 0 takes the lowest tier and rank 1 falls back,
   whose losses equal the padded run's within 1e-6; ``ShardedTable``'s
   pull and push against a plain gather and scatter; and one tiny epoch
@@ -73,8 +75,8 @@ def _stream():
                                        num_edges=600, dim_edge=6, seed=5)
 
 
-def _batches(get_batches, sampler, full):
-    return get_batches(full[:148], B, sampler(full.dst, 1))
+def _batches(get_batches, sampler, full, **kw):
+    return get_batches(full[:148], B, sampler(full.dst, 1), **kw)
 
 
 # ---- partitioners and rank splits (NumPy) ----------------------------
@@ -262,17 +264,20 @@ def _memory(mem):
             ("node_memory", "node_memory_ts", "mailbox", "mailbox_ts")}
 
 
-def _tgn_run(kind):
-    """3 TGN train steps on the rank's trainer: per step the loss, the
-    logits and the parameters, then the memory."""
+def _tgn_run(kind, ratio=1):
+    """3 TGN train steps on the rank's trainer (``"one"``: one device) at
+    ``ratio`` negatives per edge: per step the loss, the logits and the
+    parameters, then the memory."""
     _, _, _, full, _, ef = _stream()
-    model = DGNN(**TGN, device="cpu")
-    if kind == "dp":
+    model = DGNN(**TGN, neg_sample_ratio=ratio, device="cpu")
+    if kind in ("dp", "one"):
         g = DynamicGraph(initial_pool_size=1024, minimum_block_size=4)
         g.add_edges(full.src, full.dst, full.time, full.eid,
                     add_reverse=True)
-        trainer = shard_trainer(Trainer(model, fanouts=[4], device="cpu",
-                                        dedup_factor=None))
+        trainer = Trainer(model, fanouts=[4], device="cpu",
+                          dedup_factor=None, neg_sample_ratio=ratio)
+        if kind == "dp":
+            shard_trainer(trainer)
         dg, table = g.device_graph("cpu"), torch.from_numpy(ef)
     else:
         pg = PartitionedDynamicGraph(4, initial_pool_size=1024,
@@ -284,7 +289,8 @@ def _tgn_run(kind):
         dg, table = pg.device_graph("cpu"), store.edge_table
     state = trainer.init_state(full.max_node + 1)
     steps = []
-    for b in _batches(data.get_batches, data.DstRandEdgeSampler, full):
+    for b in _batches(data.get_batches, data.DstRandEdgeSampler, full,
+                      neg_sample_ratio=ratio):
         state, loss, pos, neg = trainer.train_step(state, dg, table, b)
         steps.append((float(loss), pos.numpy(), neg.numpy(),
                       _flat(flax_param_tree(model))))
@@ -372,6 +378,7 @@ def _ranks(ctx, out_dir):
     """Each rank's part of the module (imports no jax)."""
     torch.set_num_threads(1)
     out = {"dp": _tgn_run("dp"), "partitioned": _tgn_run("partitioned"),
+           "dp_ratio3": _tgn_run("dp", ratio=3),
            "tgat": _tgat_tiers(ctx), "table": _sharded_table(ctx),
            "scripts": _scripts(ctx, out_dir)}
     with open(os.path.join(out_dir, f"rank{ctx.rank}.pkl"), "wb") as f:
@@ -473,6 +480,28 @@ def test_tgn_two_ranks_match_jax(kind, ranks):
         assert a[0] == b[0]
         for name in a[3]:
             assert np.array_equal(a[3][name], b[3][name])
+
+
+def test_tgn_dp_with_negatives_matches_one_device(ranks):
+    """Data parallel at three negatives per edge: each rank slices all
+    five blocks, the write-back gathers them back in the single-device
+    order, and the negative logits come back in it (the one-device
+    trainer is held to JAX's at this ratio in
+    tests/test_torch_variants.py); within 1e-5, f32 sum order."""
+    got, _ = ranks
+    one = _tgn_run("one", ratio=3)
+    for rank in range(2):
+        run = got[rank]["dp_ratio3"]
+        for s, o in zip(run["steps"], one["steps"]):
+            assert s[2].shape == o[2].shape == (3 * B,)
+            for a, b in zip(s[:3], o[:3]):
+                np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+            for name, w in o[3].items():
+                np.testing.assert_allclose(s[3][name], w, rtol=0,
+                                           atol=1e-5, err_msg=str(name))
+        for name, w in one["memory"].items():
+            np.testing.assert_allclose(run["memory"][name], w, rtol=1e-5,
+                                       atol=1e-5, err_msg=name)
 
 
 def test_tgat_ranks_on_different_tiers_match_padded(ranks):

@@ -142,8 +142,43 @@ def test_weight_loader_rejects_other_trees():
                                 dict(dim_time=0),
                                 dict(num_layers=2)])
 def test_unported_configs_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DGNN(**{**CFG, **kw}, device="cpu")
+    """Configurations that earlier slices refused (memory over more than
+    one layer, memory updaters without time encoding) build and compute
+    JAX's eval logits on a sampled batch over filled memory, within 1e-5
+    (f32), the JAX ``DGNN`` holding the port's weights."""
+    from gnnflow_tpu.common import MFG as JMFG
+    from gnnflow_tpu.models import memory as jmemory
+    from gnnflow_tpu.train import fetch_features as jfetch
+    from gnnflow_tpu_torch.models import memory as memory_lib
+    from tests.test_torch_apan import _filled_memory, _jax_memory
+    cfg = {**CFG, **kw, "dropout": 0.0, "att_dropout": 0.0}
+    _, _, _, full, _, ef = _stream()
+    g = DynamicGraph(initial_pool_size=1024, minimum_block_size=4)
+    g.add_edges(full.src, full.dst, full.time, full.eid, add_reverse=True)
+    model = DGNN(**cfg, device="cpu")
+    trainer = Trainer(model, fanouts=[3] * cfg["num_layers"], device="cpu")
+    state = trainer.init_state(g.max_vertex_id() + 1)
+    b = next(data.get_batches(full[300:], 16,
+                              data.DstRandEdgeSampler(full.dst, 1)))
+    mfgs, efs, *_ = trainer._inputs(state, g.device_graph("cpu"),
+                                    torch.from_numpy(ef), b)
+    mem = _filled_memory(np.random.RandomState(0), state.memory.num_nodes,
+                         1)
+    pos, neg, _ = model(mfgs, efs, memory_lib.prepare_input(mem, mfgs[0][0]))
+    jmfgs = [[JMFG(*(jnp.asarray(np.asarray(getattr(m, f)), jnp.int32
+                                 if getattr(m, f).dtype == torch.int64
+                                 else None)
+                     for f in ("root_nids", "root_ts", "nbr_nids", "nbr_ts",
+                               "nbr_dts", "nbr_eids", "nbr_mask")))]
+             for (m,) in mfgs]
+    _, jefs = jfetch(jmfgs, None, jnp.asarray(ef), None, cfg["dim_edge"])
+    jpos, jneg, _ = jax.jit(JDGNN(**cfg).apply)(
+        {"params": jax.tree.map(jnp.asarray, flax_param_tree(model))},
+        jmfgs, [None], jefs,
+        jmemory.prepare_input(_jax_memory(mem), jmfgs[0][0]))
+    for a, w in ((pos, jpos), (neg, jneg)):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(w),
+                                   rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -462,7 +462,8 @@ def test_build_model_tgat():
                             172, seed=1, device="cpu")
     assert kw == {"fanouts": [10, 10], "sample_strategy": "uniform",
                   "num_snapshots": 1, "snapshot_time_window": 0,
-                  "prop_time": False, "is_static": False}
+                  "prop_time": False, "is_static": False,
+                  "neg_sample_ratio": 1}
     assert not model.use_memory and not hasattr(model, "updater")
     assert sorted(model.layers) == ["l0h0", "l1h0"]
     assert (model.dropout, model.att_dropout) == (0.1, 0.1)
