@@ -11,7 +11,14 @@ Phases (each prints one line; any failure raises and exits non-zero):
    ``nvcc`` (one process per source, in parallel) into ``build/``; prints
    each kernel's registers and spills, and the count of tensor-core
    instructions in the SASS of each GRU kernel (``cuobjdump``), which
-   must not be 0 for the bf16 forward, row-tile and product kernels.
+   must not be 0 for the bf16 forward, row-tile and product kernels; and
+   the store's ingestion helper, ``csrc/ingest.cc``, with the host
+   compiler.
+2b. ingest: the store's host helper (``csrc/ingest.cc``, built in
+   phase 2) against its plain NumPy versions on the
+   REDDIT-shaped stream of phase 4, bit for bit (``phase_ingest``'s
+   docstring), with host ms of each beside its plain version and the
+   store build's seconds both ways.
 3. kernels: each kernel against its plain PyTorch version at the shapes
    the TGN main paths give it, in f32 and bf16, with the tolerance stated;
    times the kernel, the plain version and, where one exists, a single
@@ -172,6 +179,7 @@ Then one JSON line with every kernel's numbers and, last, the result line
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -329,10 +337,15 @@ def phase_build():
     regs = {n: [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln]
             for n, log in logs.items()}
+    t0 = time.perf_counter()
+    host = _build.build_host("ingest")   # the store's host helper, g++
+    host_s = time.perf_counter() - t0
     hmma = _tensor_core_counts(_build.lib_path("gru_fused"))
     missing = [k for k in TENSOR_CORE_KERNELS
                if not any(k in fn and c > 0 for fn, c in hmma.items())]
     _log("build", seconds=round(seconds, 3), kernels=_build.sources(),
+         host_helper=os.path.relpath(host, _build.BUILD_DIR),
+         host_helper_s=round(host_s, 3),
          ptxas=regs, gru_fused_tensor_core_instructions=hmma)
     if missing:
         raise AssertionError(f"no tensor-core instructions in {missing}")
@@ -758,6 +771,202 @@ def reddit_stream(torch):
                 ef=torch.from_numpy(ef_np).cuda(),
                 nf=torch.from_numpy(nf_np).cuda(), data_s=t_data,
                 ingest_s=t_ingest)
+
+
+INGEST_REPEATS = 5      # timed calls of each full-stream sort and cut
+INGEST_CUTS = (0.1, 0.3, 0.5, 0.7, 0.9)   # eviction cuts, as time fractions
+INGEST_REGIONS = 500    # out-of-order regions re-sorted
+
+
+@contextlib.contextmanager
+def _plain_ingest():
+    """Within the block, the store runs the plain NumPy versions of the
+    ingestion helper (``np.lexsort`` and the two NumPy searches)."""
+    from gnnflow_tpu_torch.ops import ingest
+    names = ("group_sort_edges", "ranged_lower_bound", "resort_range")
+    saved = {n: getattr(ingest, n) for n in names}
+    for n in names:
+        setattr(ingest, n, getattr(ingest, n + "_ref"))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(ingest, n, fn)
+
+
+def _host_ms(fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def _store_bits(g):
+    """The store's arrays as bytes, the pool up to its used slots."""
+    used = g._pool_used
+    return dict(row_off=g._row_off.tobytes(), row_len=g._row_len.tobytes(),
+                row_cap=g._row_cap.tobytes(), dst=g._dst[:used].tobytes(),
+                ts=g._ts[:used].tobytes(), eid=g._eid[:used].tobytes(),
+                eid_seen=g._eid_seen.tobytes(),
+                counts=(used, g._num_offloaded, g._max_degree,
+                        g._num_unique_eids, g._max_vertex_id))
+
+
+def _online_store(full, plain):
+    """The online phase's store changes (``phase_online``: REDDIT's data
+    config, phase 1 on 30% of the stream, 50 chunks, the eviction of a
+    quarter of the time span after every 10th), through the helper or,
+    with ``plain``, its plain versions: the store and each chunk's
+    ingest ms and each eviction's ms (host, no device view)."""
+    from gnnflow_tpu_torch.config import get_default_config
+    from gnnflow_tpu_torch.dynamic_graph import build_dynamic_graph
+    n = len(full)
+    p1_end = int(0.3 * n)
+    chunk = (n - p1_end) // ONLINE_STEPS
+    window = float(full.time[-1] - full.time[0]) / 4
+    cfg = get_default_config("TGN", "reddit")[1]
+    ingest_ms, evict_ms, evicted = [], [], []
+    with _plain_ingest() if plain else contextlib.nullcontext():
+        g = build_dynamic_graph(**cfg)
+        g.add_edges(full.src[:p1_end], full.dst[:p1_end],
+                    full.time[:p1_end], full.eid[:p1_end],
+                    add_reverse=cfg["undirected"])
+        for step in range(ONLINE_STEPS):
+            c = full[p1_end + step * chunk: p1_end + (step + 1) * chunk]
+            ms, _ = _host_ms(g.add_edges, c.src, c.dst, c.time, c.eid,
+                             cfg["undirected"])
+            ingest_ms.append(ms)
+            if (step + 1) % RETRAIN_EVERY == 0:
+                ms, k = _host_ms(g.offload_old_blocks,
+                                 float(c.time[-1]) - window)
+                evict_ms.append(ms)
+                evicted.append(k)
+    return g, dict(ingest_ms=ingest_ms, evict_ms=evict_ms, evicted=evicted,
+                   chunk_edges=chunk, undirected=cfg["undirected"])
+
+
+def phase_ingest(torch, stream):
+    """The store's ingestion helper (``ops/ingest.py`` over
+    ``csrc/ingest.cc``) against its plain NumPy versions on the
+    REDDIT-shaped stream, bit for bit: the grouping sort of all its
+    directed edges and of 50 serving chunks (each edge also reversed, as
+    ``_graph`` ingests), the per-range lower bound over the full store's
+    active ranges at 5 cut times, the re-sort of shuffled regions of its
+    pool, the whole store built both ways, and the store after the online
+    phase's 50 chunks and evictions built both ways.  Host ms, medians."""
+    import numpy as np
+    from gnnflow_tpu_torch.ops import ingest
+    med = statistics.median
+    full, g = stream["full"], stream["g"]
+    bad = []
+
+    def sort_pair(src, ts):
+        a_ms, a = _host_ms(ingest.group_sort_edges, src, ts)
+        b_ms, b = _host_ms(ingest.group_sort_edges_ref, src, ts)
+        if not np.array_equal(a, b):
+            bad.append(f"group sort of {len(src)} edges")
+        return a_ms, b_ms
+
+    src = np.concatenate([full.src, full.dst]).astype(np.int64)
+    ts = np.concatenate([full.time, full.time]).astype(np.float32)
+    whole = [sort_pair(src, ts) for _ in range(INGEST_REPEATS)]
+    n = len(full)
+    p1_end = int(0.3 * n)
+    size = (n - p1_end) // ONLINE_STEPS
+    chunks = []
+    for step in range(ONLINE_STEPS):
+        c = full[p1_end + step * size: p1_end + (step + 1) * size]
+        chunks.append(sort_pair(
+            np.concatenate([c.src, c.dst]).astype(np.int64),
+            np.concatenate([c.time, c.time]).astype(np.float32)))
+
+    active = np.flatnonzero(g._row_len > 0)
+    offs, lens = g._row_off[active], g._row_len[active]
+    t_lo, t_hi = float(full.time[0]), float(full.time[-1])
+    bounds = []
+    for frac in INGEST_CUTS:
+        cut = np.float32(t_lo + frac * (t_hi - t_lo))
+        a = [_host_ms(ingest.ranged_lower_bound, g._ts, offs, lens, cut)
+             for _ in range(INGEST_REPEATS)]
+        b = [_host_ms(ingest.ranged_lower_bound_ref, g._ts, offs, lens, cut)
+             for _ in range(INGEST_REPEATS)]
+        if not all(np.array_equal(x[1], b[0][1]) for x in a + b):
+            bad.append(f"lower bound at {frac}")
+        bounds.append((med(x[0] for x in a), med(x[0] for x in b)))
+
+    rng = np.random.RandomState(0)
+    pick = rng.choice(active[g._row_len[active] > 1], INGEST_REGIONS,
+                      replace=False)
+    pools = [[g._ts.copy(), g._dst.copy(), g._eid.copy()] for _ in range(2)]
+    for v in pick:
+        o, k = int(g._row_off[v]), int(g._row_len[v])
+        perm = o + rng.permutation(k)
+        for pool in pools:
+            for arr in pool:
+                arr[o:o + k] = arr[perm]
+    resort = []
+    for v in pick:
+        o, k = int(g._row_off[v]), int(g._row_len[v])
+        a_ms, _ = _host_ms(ingest.resort_range, *pools[0], o, k)
+        b_ms, _ = _host_ms(ingest.resort_range_ref, *pools[1], o, k)
+        resort.append((a_ms, b_ms, k))
+    if not all(x.tobytes() == y.tobytes() for x, y in zip(*pools)):
+        bad.append("range re-sort")
+    if pools[0][0].tobytes() != g._ts.tobytes():
+        bad.append("re-sorted times differ from the store's")
+
+    builds = {"helper": [], "plain": []}
+    stores = {}
+    for kind in ("plain", "helper", "helper", "plain"):
+        t0 = time.perf_counter()
+        if kind == "plain":
+            with _plain_ingest():
+                built = _graph(full)
+        else:
+            built = _graph(full)
+        builds[kind].append(time.perf_counter() - t0)
+        stores[kind] = _store_bits(built)
+    if stores["helper"] != stores["plain"] \
+            or stores["helper"] != _store_bits(g):
+        bad.append("the whole stream's store")
+
+    online, on_times = {}, {}
+    for kind in ("helper", "plain"):
+        built, on_times[kind] = _online_store(full, kind == "plain")
+        online[kind] = _store_bits(built)
+    if online["helper"] != online["plain"]:
+        bad.append("the online phase's store")
+    if on_times["helper"]["evicted"] != on_times["plain"]["evicted"] \
+            or not all(on_times["helper"]["evicted"]):
+        bad.append(f"evicted {on_times['helper']['evicted']} against "
+                   f"{on_times['plain']['evicted']}")
+    if bad:
+        raise AssertionError(f"[ingest] helper against plain: {bad}")
+
+    h, p = on_times["helper"], on_times["plain"]
+    res = dict(
+        equal=True, directed_edges=len(src),
+        sort_ms=med(x[0] for x in whole), sort_plain_ms=med(
+            x[1] for x in whole),
+        chunk_directed_edges=2 * size,
+        chunk_sort_ms=med(x[0] for x in chunks),
+        chunk_sort_plain_ms=med(x[1] for x in chunks),
+        active_ranges=len(active), cuts=list(INGEST_CUTS),
+        lower_bound_ms=[x[0] for x in bounds],
+        lower_bound_plain_ms=[x[1] for x in bounds],
+        resort_regions=len(pick),
+        resort_region_edges_median=med(x[2] for x in resort),
+        resort_ms=med(x[0] for x in resort),
+        resort_plain_ms=med(x[1] for x in resort),
+        store_build_s=builds["helper"], store_build_plain_s=builds["plain"],
+        stream_build_s=stream["ingest_s"],
+        online_chunk_edges=h["chunk_edges"],
+        online_undirected=h["undirected"],
+        online_ingest_ms=med(h["ingest_ms"]),
+        online_ingest_plain_ms=med(p["ingest_ms"]),
+        online_evict_ms=h["evict_ms"], online_evict_plain_ms=p["evict_ms"],
+        online_evicted=h["evicted"])
+    _log("ingest", **res)
+    return res
 
 
 def _take(edges, batch_size, neg_dst, count, ratio=1):
@@ -4815,6 +5024,7 @@ def main() -> int:
     from gnnflow_tpu_torch.ops.segment_sum import sorted_segment_sum
     phase_build()
     stream = reddit_stream(torch)
+    phase_ingest(torch, stream)
     rows = phase_kernels(torch, stream)
     kernels = {"gru_memory_fused": gru_memory_fused,
                "gru_memory_fused_bwd": gru_memory_fused_bwd,

@@ -1,9 +1,11 @@
 """Dynamic graph store: a NumPy host mirror plus a torch device view.
 
-Counterpart of ``gnnflow_tpu/dynamic_graph.py:78-545`` and of the NumPy
-fallbacks in ``gnnflow_tpu/csrc/__init__.py``.  Vertex ``v`` owns pool
-slots ``[row_off[v], row_off[v] + row_cap[v])`` holding ``row_len[v]``
-edges sorted by timestamp; a vertex whose region fills moves to a
+Counterpart of ``gnnflow_tpu/dynamic_graph.py:78-545``.  Ingestion and
+eviction sort and search through the native helper of ``ops/ingest.py``
+(``csrc/ingest.cc``, the counterpart of ``gnnflow_tpu/csrc/ingest.cc``),
+whatever the view's device.  Vertex ``v`` owns pool slots
+``[row_off[v], row_off[v] + row_cap[v])`` holding ``row_len[v]`` edges
+sorted by timestamp; a vertex whose region fills moves to a
 region at the pool tail: a power of two of its edges (the default), a
 multiple of ``minimum_block_size`` (``adaptive_block_size=False``) or
 exactly its edges (``insertion_policy="replace"``).  Eviction
@@ -33,6 +35,7 @@ import torch
 
 from gnnflow_tpu_torch.common import resolve_device
 from gnnflow_tpu_torch.data import get_project_root_dir
+from gnnflow_tpu_torch.ops import ingest
 
 
 @dataclass
@@ -83,32 +86,6 @@ def _ranged_arange(counts: np.ndarray) -> np.ndarray:
         return np.zeros(0, dtype=np.int64)
     return (np.arange(total, dtype=np.int64)
             - np.repeat(_exclusive_cumsum(counts), counts))
-
-
-def _ranged_lower_bound(pool_ts: np.ndarray, off: np.ndarray,
-                        lengths: np.ndarray, target) -> np.ndarray:
-    """Per range ``[off, off + length)`` of the ts-sorted pool, the count
-    of entries below ``target``: a vectorised binary search, the NumPy
-    fallback of ``gnnflow_tpu/csrc/__init__.py:76-91``."""
-    lo = np.zeros(len(off), dtype=np.int64)
-    hi = lengths.astype(np.int64).copy()
-    while (lo < hi).any():
-        mid = (lo + hi) // 2
-        go = pool_ts[off + np.minimum(mid, lengths - 1)] < target
-        act = lo < hi
-        lo = np.where(act & go, mid + 1, lo)
-        hi = np.where(act & ~go, mid, hi)
-    return lo
-
-
-def _resort_range(pool_ts: np.ndarray, pool_dst: np.ndarray,
-                  pool_eid: np.ndarray, off: int, length: int) -> None:
-    """Stable ts re-sort of one vertex range, in place."""
-    sl = slice(off, off + length)
-    perm = np.argsort(pool_ts[sl], kind="stable")
-    pool_ts[sl] = pool_ts[sl][perm]
-    pool_dst[sl] = pool_dst[sl][perm]
-    pool_eid[sl] = pool_eid[sl][perm]
 
 
 # the reference's storage names (``gnnflow/dynamic_graph.py:53-62``) and
@@ -299,7 +276,7 @@ class DynamicGraph:
 
         # group by src, time-sorted within a group; stable, so equal
         # (src, ts) pairs keep arrival order
-        order = np.lexsort((ts, src))
+        order = ingest.group_sort_edges(src, ts)
         src, dst, ts, eids = src[order], dst[order], ts[order], eids[order]
         uniq, first_idx, counts = np.unique(
             src, return_index=True, return_counts=True)
@@ -345,8 +322,9 @@ class DynamicGraph:
             first_new_ts = ts[first_idx[had_old]]
             for j in np.flatnonzero(had_old)[first_new_ts < last_old_ts]:
                 v = uniq[j]
-                _resort_range(self._ts, self._dst, self._eid,
-                              int(self._row_off[v]), int(self._row_len[v]))
+                ingest.resort_range(self._ts, self._dst, self._eid,
+                                    int(self._row_off[v]),
+                                    int(self._row_len[v]))
         self._dirty = True
 
     # -- eviction ------------------------------------------------------
@@ -366,7 +344,8 @@ class DynamicGraph:
             return 0
         offs = self._row_off[active]
         lens = self._row_len[active]
-        k = _ranged_lower_bound(self._ts, offs, lens, np.float32(timestamp))
+        k = ingest.ranged_lower_bound(self._ts, offs, lens,
+                                      np.float32(timestamp))
         total = int(k.sum())
         if total == 0:
             return 0

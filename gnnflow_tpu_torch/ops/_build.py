@@ -8,12 +8,20 @@ source, so an edited kernel is rebuilt and an unchanged one is reused.
 
 No fast-math flag is passed: the GRU kernel's time encoding needs
 ``cosf`` with full range reduction (``dts`` reaches ~1e6).
+
+The store's ingestion helper, ``csrc/ingest.cc``, is host C++: the
+``nvcc`` build and :func:`sources` see only ``*.cu``, and
+:func:`build_host` compiles a ``.cc`` source with ``$CXX`` (default
+``g++``) into ``build/`` the same way, named by a hash of source and
+flags.  A build that fails, or finds no compiler, raises with the
+compiler's output; nothing falls back to another path.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import shlex
 import shutil
 import subprocess
 from typing import Dict, List
@@ -24,6 +32,10 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# no -march=native: the sort needs no vector ISA, and the library stays
+# loadable on another host of the same architecture
+HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -37,15 +49,21 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _lib_file(source: str, flags: List[str], build_dir: str) -> str:
+    """``build_dir/lib<name>-<hash of the source and flags>.so``."""
+    with open(os.path.join(CSRC, source), "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(flags).encode())
+    name = os.path.splitext(source)[0]
+    return os.path.join(build_dir, f"lib{name}-{digest.hexdigest()[:12]}.so")
+
+
 def lib_path(name: str) -> str:
     """Path of the built library of ``csrc/<name>.cu``."""
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+    return _lib_file(name + ".cu", NVCC_FLAGS, BUILD_DIR)
 
 
 def sources() -> List[str]:
-    """Kernel source names (``csrc/<name>.cu``)."""
+    """Kernel source names (``csrc/<name>.cu``; not the host ``.cc``)."""
     return sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
 
 
@@ -86,6 +104,50 @@ def load(name: str) -> ctypes.CDLL:
         build_all([name])
         lib = ctypes.CDLL(lib_path(name))
         _loaded[name] = lib
+    return lib
+
+
+def host_lib_path(name: str, build_dir: str = BUILD_DIR) -> str:
+    """Path of the built library of the host source ``csrc/<name>.cc``."""
+    return _lib_file(name + ".cc", HOST_FLAGS, build_dir)
+
+
+def build_host(name: str, build_dir: str = BUILD_DIR) -> str:
+    """Compile ``csrc/<name>.cc`` with the host compiler (``$CXX``, else
+    ``g++``) unless its library exists; return the library's path.  The
+    library is written to a temporary file and renamed into place, so
+    processes that build at once never load a partial file.  Raises
+    ``RuntimeError`` with the compiler's output if the build fails."""
+    out = host_lib_path(name, build_dir)
+    if os.path.exists(out):
+        return out
+    os.makedirs(build_dir, exist_ok=True)
+    cxx = shlex.split(os.environ.get("CXX") or "g++")
+    tmp = out + f".{os.getpid()}.tmp"
+    cmd = [*cxx, *HOST_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cc")]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f"host compiler {cxx[0]!r} not found: csrc/"
+                           f"{name}.cc cannot be built ({e})") from e
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(
+            f"{' '.join(cmd)} failed (exit {proc.returncode}):\n"
+            f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of the host source ``csrc/<name>.cc``, built on
+    first use."""
+    key = name + ".cc"
+    lib = _loaded.get(key)
+    if lib is None:
+        lib = ctypes.CDLL(build_host(name))
+        _loaded[key] = lib
     return lib
 
 

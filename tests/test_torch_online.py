@@ -141,9 +141,11 @@ def _assert_stores_equal(g, jg):
 
 def test_eviction_matches_jax(tmp_path):
     """add → evict (spilled) → add (evicted vertices fill again and
-    move) → evict → add → evict → compact, then restore the spill; the
-    store, the evicted counts, the spill file and recent sampling after
-    every step bit-equal to JAX's."""
+    move) → evict → add → evict → compact, then restore the spill; each
+    add out of order (a chunk's later half first, each half shuffled, so
+    that regions holding later edges are re-sorted); the store, the
+    evicted counts, the spill file and recent sampling after every step
+    bit-equal to JAX's."""
     _, _, _, full, _, _ = _stream()
     g = DynamicGraph(initial_pool_size=1024, minimum_block_size=4,
                      spill_dir=str(tmp_path / "port"))
@@ -163,11 +165,16 @@ def test_eviction_matches_jax(tmp_path):
         _assert_mfgs_identical(got, want)
 
     evicted = []
+    shuffle = np.random.RandomState(1)
     for lo, hi, horizon in ((0, 800, 300.0), (800, 1400, 500.0),
                             (1400, 2000, 400.0)):
         sl = full[lo:hi]
-        for x in (g, jg):
-            x.add_edges(sl.src, sl.dst, sl.time, sl.eid, add_reverse=True)
+        mid = (lo + hi) // 2
+        for part in (full[mid:hi], full[lo:mid]):
+            p = shuffle.permutation(len(part))
+            for x in (g, jg):
+                x.add_edges(part.src[p], part.dst[p], part.time[p],
+                            part.eid[p], add_reverse=True)
         sample(float(sl.time[-1]) + 1)
         cut = float(sl.time[-1]) - horizon
         spill = lo == 0
