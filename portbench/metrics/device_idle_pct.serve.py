@@ -1,0 +1,1 @@
+from portbench.readers import idle_pct as read  # noqa: F401
