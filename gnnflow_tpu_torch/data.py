@@ -19,6 +19,8 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from gnnflow_tpu_torch.utils import profiling
+
 
 def get_project_root_dir() -> str:
     return os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
@@ -413,11 +415,14 @@ def get_batches(data: EdgeTable, batch_size: int,
                     yield np.arange(lo, min(lo + batch_size, n))
 
     for sel in selections():
-        k = len(sel)
-        if neg_sampler is not None:
-            neg = neg_sampler.sample(neg_sample_ratio * k) \
-                .reshape(neg_sample_ratio, k)
-        else:
-            neg = np.full((neg_sample_ratio, k), -1, dtype=np.int64)
-        yield _pad_batch(data.src[sel], data.dst[sel], neg, data.time[sel],
-                         data.eid[sel], batch_size if pad else k)
+        with profiling.span("data.get_batches"):
+            k = len(sel)
+            if neg_sampler is not None:
+                neg = neg_sampler.sample(neg_sample_ratio * k) \
+                    .reshape(neg_sample_ratio, k)
+            else:
+                neg = np.full((neg_sample_ratio, k), -1, dtype=np.int64)
+            batch = _pad_batch(data.src[sel], data.dst[sel], neg,
+                               data.time[sel], data.eid[sel],
+                               batch_size if pad else k)
+        yield batch

@@ -36,6 +36,7 @@ import torch
 from gnnflow_tpu_torch.common import resolve_device
 from gnnflow_tpu_torch.data import get_project_root_dir
 from gnnflow_tpu_torch.ops import ingest
+from gnnflow_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -230,6 +231,7 @@ class DynamicGraph:
 
     # -- insertion -----------------------------------------------------
 
+    @profiling.traced("store.add_edges")
     def add_edges(self, source_vertices: np.ndarray,
                   target_vertices: np.ndarray,
                   timestamps: np.ndarray,
@@ -276,7 +278,8 @@ class DynamicGraph:
 
         # group by src, time-sorted within a group; stable, so equal
         # (src, ts) pairs keep arrival order
-        order = ingest.group_sort_edges(src, ts)
+        with profiling.span("store.ingest_native"):
+            order = ingest.group_sort_edges(src, ts)
         src, dst, ts, eids = src[order], dst[order], ts[order], eids[order]
         uniq, first_idx, counts = np.unique(
             src, return_index=True, return_counts=True)
@@ -320,15 +323,18 @@ class DynamicGraph:
         if had_old.any():
             last_old_ts = self._ts[(old_off + old_len - 1)[had_old]]
             first_new_ts = ts[first_idx[had_old]]
-            for j in np.flatnonzero(had_old)[first_new_ts < last_old_ts]:
-                v = uniq[j]
-                ingest.resort_range(self._ts, self._dst, self._eid,
-                                    int(self._row_off[v]),
-                                    int(self._row_len[v]))
+            late = np.flatnonzero(had_old)[first_new_ts < last_old_ts]
+            with profiling.span("store.ingest_native"):
+                for j in late:
+                    v = uniq[j]
+                    ingest.resort_range(self._ts, self._dst, self._eid,
+                                        int(self._row_off[v]),
+                                        int(self._row_len[v]))
         self._dirty = True
 
     # -- eviction ------------------------------------------------------
 
+    @profiling.traced("store.evict")
     def offload_old_blocks(self, timestamp: float,
                            to_file: bool = False) -> int:
         """Evict every edge strictly older than ``timestamp``
@@ -344,8 +350,9 @@ class DynamicGraph:
             return 0
         offs = self._row_off[active]
         lens = self._row_len[active]
-        k = ingest.ranged_lower_bound(self._ts, offs, lens,
-                                      np.float32(timestamp))
+        with profiling.span("store.ingest_native"):
+            k = ingest.ranged_lower_bound(self._ts, offs, lens,
+                                          np.float32(timestamp))
         total = int(k.sum())
         if total == 0:
             return 0
@@ -474,15 +481,18 @@ class DynamicGraph:
             return self._device_graph
 
         def put(x):
+            profiling.count("host_sync.view_upload")
+            profiling.count("store.view_bytes", x.nbytes)
             return torch.from_numpy(x).to(dev, copy=True)
 
-        self._device_graph = DeviceGraph(
-            row_off=put(self._row_off.astype(np.int32)),
-            row_len=put(self._row_len.astype(np.int32)),
-            e_dst=put(self._dst),
-            e_ts=put(self._ts),
-            e_eid=put(self._eid),
-            search_iters=max(1, self._max_degree.bit_length()))
+        with profiling.span("store.view_refresh"):
+            self._device_graph = DeviceGraph(
+                row_off=put(self._row_off.astype(np.int32)),
+                row_len=put(self._row_len.astype(np.int32)),
+                e_dst=put(self._dst),
+                e_ts=put(self._ts),
+                e_eid=put(self._eid),
+                search_iters=max(1, self._max_degree.bit_length()))
         self._view_device, self._dirty = dev, False
         self.uploads += 1
         return self._device_graph

@@ -52,6 +52,7 @@ from gnnflow_tpu_torch.ops.apan_kv import (apan_table_pull,
 from gnnflow_tpu_torch.ops.gru_gather import gru_node_gather
 from gnnflow_tpu_torch.ops.segment import unique_keep_last_mask
 from gnnflow_tpu_torch.ops.segment_sum import expand_compact
+from gnnflow_tpu_torch.utils import profiling
 
 # the state's tensors, in the order a routed pull packs their rows
 TENSORS = ("node_memory", "node_memory_ts", "mailbox", "mailbox_ts",
@@ -654,10 +655,12 @@ def update_mem_mail(state: MemoryState,
     nid_block = last_updated_nid[:2 * b]
     valid_block = torch.cat([valid, valid]) & (nid_block >= 0)
 
+    profiling.count("host_sync.write_back", 2)
     rows = unique_keep_last_mask(nid_inter, valid_inter).nonzero().squeeze(1)
     mrows = unique_keep_last_mask(nid_block, valid_block).nonzero().squeeze(1)
     lo, n = 0, state.node_memory.shape[0]
     if state.shard is not None:
+        profiling.count("host_sync.write_back", 2)
         lo = state.shard.lo
         rows = rows[(nid_inter[rows] >= lo) & (nid_inter[rows] < lo + n)]
         mrows = mrows[(nid_block[mrows] >= lo) & (nid_block[mrows] < lo + n)]

@@ -35,6 +35,7 @@ from gnnflow_tpu_torch.common import MFG
 from gnnflow_tpu_torch.ops.attention_fused import (
     masked_softmax, neighborhood_attention_autograd)
 from gnnflow_tpu_torch.ops.gru_fused import gru_memory_fused_autograd
+from gnnflow_tpu_torch.utils import profiling
 
 __all__ = ["Linear", "MultiLinear", "TimeEncode", "FusedGRUCell",
            "masked_softmax", "dropout", "TemporalAttentionLayer",
@@ -188,10 +189,11 @@ class FusedGRUCell(nn.Module):
         (``time_enc`` None) the plain cell (:meth:`plain`)."""
         if time_enc is None:
             return self.plain(h, x)
-        return gru_memory_fused_autograd(
-            h, x, dts, self.ih.kernel, self.ih.bias, self.hh.kernel,
-            self.hh.bias, time_enc.w, time_enc.b, self.ki, self.kh,
-            self.compute_dtype)
+        with profiling.span("memory.gru"):
+            return gru_memory_fused_autograd(
+                h, x, dts, self.ih.kernel, self.ih.bias, self.hh.kernel,
+                self.hh.bias, time_enc.w, time_enc.b, self.ki, self.kh,
+                self.compute_dtype)
 
     def plain(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """The cell without a time part, as JAX's ``FusedGRUCell`` computes
@@ -313,13 +315,14 @@ class TemporalAttentionLayer(nn.Module):
                 rst = dropout(rst, self.dropout, generator)
             return self.layer_norm(torch.relu(rst).float())
         kv = self.w_kv([h_src, ef, tf])
-        if train and self.att_dropout > 0:
-            agg = self._attention_plain(q, kv, mfg.nbr_mask, generator)
-        else:
-            agg = neighborhood_attention_autograd(
-                q.reshape(B, H, dh), kv[..., :D].reshape(B, F, H, dh),
-                kv[..., D:].reshape(B, F, H, dh),
-                mfg.nbr_mask).reshape(B, D)
+        with profiling.span("model.attention"):
+            if train and self.att_dropout > 0:
+                agg = self._attention_plain(q, kv, mfg.nbr_mask, generator)
+            else:
+                agg = neighborhood_attention_autograd(
+                    q.reshape(B, H, dh), kv[..., :D].reshape(B, F, H, dh),
+                    kv[..., D:].reshape(B, F, H, dh),
+                    mfg.nbr_mask).reshape(B, D)
         rst = self.w_out([agg, h_dst] if self.dim_node > 0 else [agg])
         if train:
             rst = dropout(rst, self.dropout, generator)

@@ -33,6 +33,7 @@ import torch
 
 from gnnflow_tpu_torch.common import INVALID_NID, MFG
 from gnnflow_tpu_torch.dynamic_graph import DeviceGraph
+from gnnflow_tpu_torch.utils import profiling
 
 Draw = Callable[[int, tuple], torch.Tensor]
 
@@ -279,6 +280,7 @@ def _sample_layer_compacted(g: DeviceGraph, prev: Sequence[MFG], cap: int,
     S, B1, F = len(prev), prev[0].num_dst, prev[0].fanout
     R_full = torch.stack([m.all_nodes() for m in prev])
     T_full = torch.stack([m.all_ts() for m in prev])
+    profiling.count("host_sync.boundary_overflow")
     if bool(boundary_overflow(prev, cap)):
         u = draw(tuple(R_full.shape) + (kw["fanout"],)) if draw else None
         return sample_layer_snapshots(g, R_full, T_full, u=u, **kw)

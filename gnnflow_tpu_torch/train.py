@@ -74,6 +74,7 @@ from gnnflow_tpu_torch.ops.sampling import (boundary_overflow,
                                              sample_deeper_compact,
                                              sample_hops, sample_layer,
                                              sample_layer_snapshots)
+from gnnflow_tpu_torch.utils import profiling
 
 # the sampling generator's seed is this plus init_state's seed, so its
 # draws are not the dropout generator's
@@ -152,6 +153,7 @@ def _gather_rows(table, ids: torch.Tensor, valid: torch.Tensor,
     return torch.where(valid[..., None], rows, 0.0)
 
 
+@profiling.traced("features.gather")
 def fetch_features(mfgs: List[List[MFG]],
                    edge_feats: Optional[torch.Tensor]):
     """Per-layer, per-snapshot [B, F, dim_edge] edge features."""
@@ -167,16 +169,19 @@ def fetch_node_features(mfgs: List[List[MFG]],
     ``dtype``; None without a table."""
     if node_feats is None:
         return None
-    return [_gather_rows(node_feats, m.all_nodes(), m.all_mask(), dtype)
-            for m in mfgs[0]]
+    with profiling.span("features.gather"):
+        return [_gather_rows(node_feats, m.all_nodes(), m.all_mask(), dtype)
+                for m in mfgs[0]]
 
 
 def _mfg_to(mfg: MFG, device: torch.device) -> MFG:
     """``mfg`` with every tensor on ``device``'s type of device."""
     if mfg.root_nids.device.type == device.type:
         return mfg
+    fields = dataclasses.fields(mfg)
+    profiling.count("host_sync.mfg_upload", len(fields))
     return MFG(**{f.name: getattr(mfg, f.name).to(device)
-                  for f in dataclasses.fields(mfg)})
+                  for f in fields})
 
 
 def dedup_cap(factor: float, num_all: int) -> int:
@@ -267,6 +272,7 @@ def _uniq_pairs_frac(layer: Sequence[MFG]) -> float:
     bits) pairs of an MFG's instances over all its instances."""
     frac = 0.0
     for m in layer:
+        profiling.count("host_sync.calibrate", 3)
         nid = m.all_nodes().cpu().numpy()
         mts = m.all_ts().cpu().numpy().view(np.int32)
         valid = m.all_mask().cpu().numpy()
@@ -533,6 +539,7 @@ class Trainer:
         def boundary(layer, prev, sample):
             B, F = prev[0].num_dst, prev[0].fanout
             cap = min(B, max(1, math.ceil(float(self.compact_factor) * B)))
+            profiling.count("host_sync.boundary_overflow")
             if bool(boundary_overflow(prev, cap)):  # the boundary's sync
                 return None
             inner, rank = sample_deeper_compact(dg, prev, cap,
@@ -567,6 +574,7 @@ class Trainer:
                              prev[0].num_all)
             dd = [dedup_instances(m.all_nodes(), m.all_ts(), m.all_mask(),
                                   caps[-1]) for m in prev]
+            profiling.count("host_sync.layer_dedup")
             n = int(torch.stack([d[3] for d in dd]).max())  # one sync
             n_uniqs.append(n)
             if layer == 1:
@@ -586,6 +594,7 @@ class Trainer:
         state.layer_dedup_n_uniq = n_uniqs
         return mfgs, exps, take[0]
 
+    @profiling.traced("memory.pull")
     def _mem_input(self, state: TrainState, mfg: MFG,
                    node_feats: Optional[torch.Tensor], dedup: bool = True):
         """The memory updater's input (``train.py:834-904``): the dedup's
@@ -617,6 +626,7 @@ class Trainer:
             uniq_nid, uniq_ts, inv, n_uniq, sidx, rank_sorted = \
                 dedup_instances(mfg.all_nodes(), mfg.all_ts(),
                                 mfg.all_mask(), cap)
+            profiling.count("host_sync.memory_dedup")
             state.dedup_n_uniq = int(n_uniq)      # the step's host sync
             if state.dedup_n_uniq <= cap:
                 return memory_lib.DedupMemoryInput(
@@ -637,12 +647,14 @@ class Trainer:
             return memory_lib.prepare_input(memory, mfg, torch.bfloat16)
         return memory_lib.prepare_input(memory, mfg)
 
+    @profiling.traced("trainer.batch_upload")
     def batch_arrays(self, batch: Batch):
         """``(target_nodes, ts, eids, valid)`` of ``batch`` on the
         trainer's device; ``valid`` [B] masks padded rows."""
         dev = self.device
         valid = torch.zeros(batch.batch_size, dtype=torch.bool)
         valid[: batch.num_valid] = True
+        profiling.count("host_sync.batch_upload", 4)
         return (torch.from_numpy(batch.target_nodes).to(dev),
                 torch.from_numpy(batch.ts).to(dev),
                 torch.from_numpy(batch.eids).to(dev), valid.to(dev))
@@ -684,15 +696,16 @@ class Trainer:
         state.layer_dedup_n_uniq, state.layer_dedup_compact = None, 0
         state.block_compact = 0
         compaction = self.model_compact and self.compact_factor is not None
-        if self.layer_dedup is not None and (self.num_snapshots > 1
-                                             or not compaction):
-            mfgs, expansions, take = self._dedup_mfgs(state, dg,
-                                                      target_nodes, ts)
-        elif compaction:
-            mfgs, expansions = self._model_compact_mfgs(state, dg,
-                                                        target_nodes, ts)
-        else:
-            mfgs = self._sample(state.sample_gen, dg, target_nodes, ts)
+        with profiling.span("sampler.sample"):
+            if self.layer_dedup is not None and (self.num_snapshots > 1
+                                                 or not compaction):
+                mfgs, expansions, take = self._dedup_mfgs(state, dg,
+                                                          target_nodes, ts)
+            elif compaction:
+                mfgs, expansions = self._model_compact_mfgs(
+                    state, dg, target_nodes, ts)
+            else:
+                mfgs = self._sample(state.sample_gen, dg, target_nodes, ts)
         state.last_take = take
         if train and take is not None and self.dp is None:
             state.tier_takes[take] += 1
@@ -730,16 +743,19 @@ class Trainer:
                     valid) -> None:
         if last is None:                   # a model without memory
             return
-        last = self._root_rows(last, valid)
-        if self.dp is not None:
-            last, eids, valid = self.dp.gather_write_back(last, eids, valid)
-        # target-edge features for the mails
-        tef = _gather_rows(edge_feats, eids, valid)
-        memory_lib.update_mem_mail(
-            state.memory, last["last_updated_nid"],
-            last["last_updated_memory"], last["last_updated_ts"],
-            edge_feats=tef, valid=valid, neg_sample_ratio=self.neg_ratio)
+        with profiling.span("memory.write_back"):
+            last = self._root_rows(last, valid)
+            if self.dp is not None:
+                last, eids, valid = self.dp.gather_write_back(last, eids,
+                                                              valid)
+            # target-edge features for the mails
+            tef = _gather_rows(edge_feats, eids, valid)
+            memory_lib.update_mem_mail(
+                state.memory, last["last_updated_nid"],
+                last["last_updated_memory"], last["last_updated_ts"],
+                edge_feats=tef, valid=valid, neg_sample_ratio=self.neg_ratio)
 
+    @profiling.traced("trainer.train_step", step=True)
     def train_step(self, state: TrainState, dg: DeviceGraph,
                    edge_feats: Optional[torch.Tensor], batch: Batch, *,
                    node_feats: Optional[torch.Tensor] = None):
@@ -775,10 +791,12 @@ class Trainer:
         if not train:
             return self.eval_step(state, dg, edge_feats, arrays,
                                   node_feats=node_feats)
-        if not self._calibrated:
-            self._maybe_auto_calibrate(dg, target_nodes.cpu().numpy(),
-                                       ts.cpu().numpy())
-        return self._train(state, dg, edge_feats, arrays, node_feats)
+        with profiling.span("trainer.train_step", step=True):
+            if not self._calibrated:
+                profiling.count("host_sync.calibrate", 2)
+                self._maybe_auto_calibrate(dg, target_nodes.cpu().numpy(),
+                                           ts.cpu().numpy())
+            return self._train(state, dg, edge_feats, arrays, node_feats)
 
     def train_steps_scan(self, state: TrainState, dg: DeviceGraph,
                          edge_feats: Optional[torch.Tensor],
@@ -794,13 +812,15 @@ class Trainer:
         each step equals :meth:`train_step` on the same batch, bit for
         bit.  Returns ``(state, losses [K])``."""
         if not self._calibrated:
+            profiling.count("host_sync.calibrate", 2)
             self._maybe_auto_calibrate(dg, target_nodes[0].cpu().numpy(),
                                        ts[0].cpu().numpy())
         losses = []
         for k in range(target_nodes.shape[0]):
-            state, loss, _, _ = self._train(
-                state, dg, edge_feats,
-                (target_nodes[k], ts[k], eids[k], valid[k]), node_feats)
+            with profiling.span("trainer.train_step", step=True):
+                state, loss, _, _ = self._train(
+                    state, dg, edge_feats,
+                    (target_nodes[k], ts[k], eids[k], valid[k]), node_feats)
             losses.append(loss)
         return state, torch.stack(losses)
 
@@ -814,22 +834,38 @@ class Trainer:
         mfgs, efs, mem_input, eids, valid, expansions = self._inputs(
             state, dg, edge_feats, part, train=True, node_feats=node_feats)
         nfs = self._node_inputs(mfgs, mem_input, node_feats, True)
-        pos, neg, last = self.model(mfgs, efs, mem_input, train=True,
-                                    generator=state.dropout_gen,
-                                    expansions=expansions, node_feats=nfs)
+        pos, neg, last = self._forward(mfgs, efs, mem_input, train=True,
+                                       generator=state.dropout_gen,
+                                       expansions=expansions, node_feats=nfs)
         loss = link_pred_loss(pos, neg, valid, self.neg_ratio, num_valid)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        self._backward(state, loss)
         if self.dp is not None:
             loss, take = self.dp.reduce_step(self.model.parameters(), loss,
                                              state.last_take)
             if take is not None:
                 state.tier_takes[take] += 1
-        state.optimizer.step()
-        self.model.cast_weights()
+        self._optimizer_step(state)
         self._write_back(state, last, edge_feats, eids, valid)
         state.step += 1
         return (state, loss.detach()) + self._logits(pos, neg)
+
+    @profiling.traced("model.forward")
+    def _forward(self, *args, **kw):
+        """The model's forward pass over a step's inputs."""
+        return self.model(*args, **kw)
+
+    def _backward(self, state: TrainState, loss: torch.Tensor) -> None:
+        with profiling.span("trainer.optimizer"):
+            state.optimizer.zero_grad(set_to_none=True)
+        with profiling.span("trainer.backward"):
+            loss.backward()
+
+    @profiling.traced("trainer.optimizer")
+    def _optimizer_step(self, state: TrainState) -> None:
+        """The optimizer's step, then the model's compute-dtype weight
+        copies remade."""
+        state.optimizer.step()
+        self.model.cast_weights()
 
     def _logits(self, pos: torch.Tensor, neg: torch.Tensor):
         """``(pos [B], neg [r·B])`` of the whole batch, detached: gathered
@@ -866,9 +902,16 @@ class Trainer:
 
         Returns ``(state, loss, pos_logits [B], neg_logits [B])``,
         detached."""
+        with profiling.span("trainer.train_step" if train
+                            else "trainer.eval_step", step=True):
+            return self._prefetched(state, mfgs, nfs, efs, tef, batch, train)
+
+    def _prefetched(self, state, mfgs, nfs, efs, tef, batch, train):
+        """:meth:`train_step_prefetched` inside its step's span."""
         mfgs = [[_mfg_to(m, self.device) for m in layer] for layer in mfgs]
         valid = torch.zeros(batch.batch_size, dtype=torch.bool)
         valid[: batch.num_valid] = True
+        profiling.count("host_sync.batch_upload")
         valid = valid.to(self.device)
         state.dedup_n_uniq = None
         with torch.no_grad():
@@ -883,19 +926,17 @@ class Trainer:
                 node_in = [None if nf is None else nf.to(dtype)
                            for nf in nfs]
         with torch.set_grad_enabled(train):
-            pos, neg, last = self.model(mfgs, efs, mem_input, train=train,
-                                        generator=state.dropout_gen,
-                                        node_feats=node_in)
+            pos, neg, last = self._forward(mfgs, efs, mem_input, train=train,
+                                           generator=state.dropout_gen,
+                                           node_feats=node_in)
             loss = link_pred_loss(pos, neg, valid, self.neg_ratio)
         if train:
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            state.optimizer.step()
-            self.model.cast_weights()
+            self._backward(state, loss)
+            self._optimizer_step(state)
             state.step += 1
         if last is not None:
-            last = self._root_rows(last, valid)
-            with torch.no_grad():
+            with profiling.span("memory.write_back"), torch.no_grad():
+                last = self._root_rows(last, valid)
                 memory_lib.update_mem_mail(
                     state.memory, last["last_updated_nid"],
                     last["last_updated_memory"], last["last_updated_ts"],
@@ -903,6 +944,7 @@ class Trainer:
                     neg_sample_ratio=self.neg_ratio)
         return state, loss.detach(), pos[:, 0].detach(), neg[:, 0].detach()
 
+    @profiling.traced("trainer.eval_step", step=True)
     @torch.no_grad()
     def eval_step(self, state: TrainState, dg: DeviceGraph,
                   edge_feats: Optional[torch.Tensor], batch, *,
@@ -921,8 +963,8 @@ class Trainer:
         mfgs, efs, mem_input, eids, valid, expansions = self._inputs(
             state, dg, edge_feats, part, node_feats=node_feats)
         nfs = self._node_inputs(mfgs, mem_input, node_feats, False)
-        pos, neg, last = self.model(mfgs, efs, mem_input,
-                                    expansions=expansions, node_feats=nfs)
+        pos, neg, last = self._forward(mfgs, efs, mem_input,
+                                       expansions=expansions, node_feats=nfs)
         loss = link_pred_loss(pos, neg, valid, self.neg_ratio, num_valid)
         if self.dp is not None:
             loss = self.dp.reduce_loss(loss)
@@ -943,6 +985,7 @@ class Trainer:
 
         Returns the [(2+r)·B, dim_embed] embeddings."""
         dev = self.device
+        profiling.count("host_sync.batch_upload", 2)
         roots = torch.from_numpy(batch.target_nodes).to(dev)
         ts = torch.from_numpy(batch.ts).to(dev)
         if self.is_static:
@@ -956,10 +999,11 @@ class Trainer:
                                     dedup=False) \
             if self.model.use_memory else None
         nfs = self._node_inputs(mfgs, mem_input, node_feats, False)
-        embed, _ = self.model(mfgs, efs, mem_input, node_feats=nfs,
-                              return_embed=True)
+        embed, _ = self._forward(mfgs, efs, mem_input, node_feats=nfs,
+                                 return_embed=True)
         return embed
 
+    @profiling.traced("trainer.calibrate")
     def calibrate(self, dg: DeviceGraph, batches, *, max_batches: int = 3,
                   occ_batches=()) -> dict:
         """Pick the knobs left on ``"auto"`` from the measured stream
@@ -1030,9 +1074,12 @@ class Trainer:
         ts = np.asarray(ts, np.float32)
         if self.is_static:               # every probe, shifted or not
             ts = np.full_like(ts, STATIC_SAMPLE_TS)
+        profiling.count("host_sync.calibrate", 2)
         mfgs = self._sample(
             gen, dg, torch.from_numpy(np.asarray(roots, np.int64)).to(dev),
             torch.from_numpy(ts).to(dev), compact=False)
+        profiling.count("host_sync.calibrate",
+                        sum(len(layer) for layer in mfgs[1:]))
         occ = [m.nbr_mask.float().mean().item()
                for layer in mfgs[1:] for m in layer]
         u = _uniq_pairs_frac(mfgs[0][:1]) if self.model.use_memory \
@@ -1053,6 +1100,7 @@ class Trainer:
         if self._calibrated:
             return
         ts_arr = np.asarray(ts, np.float32)
+        profiling.count("host_sync.calibrate")
         t_hi = dg.max_ts()
         t_b = float(ts_arr.max())
         probes = [(roots, ts_arr + np.float32(q * t_hi - t_b))

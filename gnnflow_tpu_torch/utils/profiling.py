@@ -1,21 +1,22 @@
-"""Phase timers, profiler traces and device memory statistics.
+"""Phase timers, the program's tracer and device memory statistics.
 
 Counterpart of ``gnnflow_tpu/utils/profiling.py``:
 
 - :class:`PhaseTimer`: accumulating wall-clock phases (``sample``,
   ``feature``, ``train``), as the offline script logs them every epoch;
-- :func:`trace`: a ``torch.profiler`` trace of a block, written for
-  TensorBoard;
+- :class:`Tracer`, :func:`span` and :func:`count`: spans at the
+  program's layer boundaries and counters of its host waits, recorded in
+  memory while a tracer is started (:func:`start_tracing`) and costing
+  one ``None`` check while none is;
 - :func:`device_memory_stats`: each CUDA device's allocator statistics.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
 from collections import defaultdict
-from typing import Dict, Optional
-
-import torch
+from typing import Dict, List, Optional
 
 
 class PhaseTimer:
@@ -63,27 +64,113 @@ class PhaseTimer:
                           for k, v in sorted(self.summary().items()))
 
 
-@contextlib.contextmanager
-def trace(logdir: Optional[str] = None):
-    """Trace the block with ``torch.profiler`` (the CPU, and CUDA where
-    there is a card) into a TensorBoard log under ``logdir``; nothing when
-    ``logdir`` is None.  A profiler that cannot start raises."""
-    if logdir is None:
-        yield
-        return
-    from torch.profiler import (ProfilerActivity, profile,
-                                tensorboard_trace_handler)
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(logdir)):
-        yield
+class Tracer:
+    """The spans and counters recorded while this tracer is started.
+
+    ``spans`` holds one ``(name, start_ns, end_ns, parent, step)`` per
+    span, in the order they opened: ``parent`` is the index of the span
+    that was open around it (-1: none), ``step`` the id of the train or
+    eval step it belongs to (-1: none), shared by every span of one step.
+    The clock is ``time.time_ns``, the wall clock that ``torch.profiler``
+    gives its device timestamps on.  ``counters`` holds integer counts by
+    name.  Spans nest as the ``with`` blocks of one thread do."""
+
+    def __init__(self):
+        self.spans: List[tuple] = []
+        self.counters: Dict[str, int] = {}
+        self.steps = 0
+        self._open: List[int] = []
+        self._step = -1
+
+
+class _Span:
+    __slots__ = ("tracer", "name", "step", "index", "outer_step")
+
+    def __init__(self, tracer: Tracer, name: str, step: bool):
+        self.tracer, self.name, self.step = tracer, name, step
+
+    def __enter__(self):
+        t = self.tracer
+        if self.step:
+            self.outer_step = t._step
+            t.steps += 1
+            t._step = t.steps
+        self.index = len(t.spans)
+        t.spans.append((self.name, time.time_ns(), 0,
+                        t._open[-1] if t._open else -1, t._step))
+        t._open.append(self.index)
+
+    def __exit__(self, *exc):
+        t = self.tracer
+        name, start, _, parent, step = t.spans[self.index]
+        t.spans[self.index] = (name, start, time.time_ns(), parent, step)
+        t._open.pop()
+        if self.step:
+            t._step = self.outer_step
+        return False
+
+
+_active: Optional[Tracer] = None
+_NO_SPAN = contextlib.nullcontext()
+
+
+def start_tracing(tracer: Optional[Tracer] = None) -> Tracer:
+    """Record spans and counts into ``tracer`` (a new one where None)
+    until :func:`stop_tracing`; starting a stopped tracer again goes on
+    with its records."""
+    global _active
+    _active = tracer if tracer is not None else Tracer()
+    return _active
+
+
+def stop_tracing() -> Optional[Tracer]:
+    """Stop recording; returns the tracer that was started, if any.  A
+    span open across the stop still records its end."""
+    global _active
+    tracer, _active = _active, None
+    return tracer
+
+
+def span(name: str, step: bool = False):
+    """A context that records a span ``name`` while a tracer is started;
+    ``step=True`` opens a train or eval step, which gives its spans a new
+    step id.  While none is started, the one shared no-op context: no
+    clock is read and nothing is allocated."""
+    tracer = _active
+    if tracer is None:
+        return _NO_SPAN
+    return _Span(tracer, name, step)
+
+
+def traced(name: str, step: bool = False):
+    """Decorate a function to run inside :func:`span` ``(name, step)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kw):
+            if _active is None:
+                return fn(*args, **kw)
+            with _Span(_active, name, step):
+                return fn(*args, **kw)
+        return run
+    return wrap
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while a tracer is started.
+
+    ``host_sync.<site>`` counts the host's waits for the device at a
+    site: a copy from pageable host memory, a read of a device value.  A
+    site counts on every device, the CPU included, so a CPU run reads how
+    often the same path waits on a card."""
+    tracer = _active
+    if tracer is not None:
+        tracer.counters[name] = tracer.counters.get(name, 0) + n
 
 
 def device_memory_stats() -> Dict[str, Dict[str, int]]:
     """Bytes in use, the device's total and the peak in use, per CUDA
     device, from ``torch.cuda.memory_stats``; empty without CUDA."""
+    import torch
     out = {}
     if not torch.cuda.is_available():
         return out
