@@ -5,6 +5,7 @@ that its checkpoint lands in the copy), a failing run of
 exit 1), and ``bash -n`` on all three."""
 import os
 import shutil
+import signal
 import subprocess
 import sys
 
@@ -38,18 +39,31 @@ def test_run_offline_on_cpu_and_multiprocess_status(tmp_path):
     shutil.copy(lib, copy / "build")
     env = dict(os.environ, PYTHON=sys.executable, OMP_NUM_THREADS="1")
     scripts = copy / "gnnflow_tpu_torch" / "scripts"
+    # each launcher leads its own process group, so that a run cut by its
+    # timeout leaves no rank or interpreter behind
     run = dict(cwd=str(tmp_path), env=env, stdout=subprocess.PIPE,
-               stderr=subprocess.STDOUT, text=True)
-    offline = subprocess.Popen(
-        ["bash", str(scripts / "run_offline.sh"), "GRAPHSAGE", "SYNTHETIC",
-         "--epoch", "1", "--synthetic-edges", "1500",
-         "--synthetic-dim-edge", "8", "--device", "cpu"], **run)
-    ranks = subprocess.Popen(
-        ["bash", str(scripts / "run_multiprocess.sh"), "TGN", "SYNTHETIC",
-         "2", "all", "localhost:1", "--device", "cpu", "--no-such-flag"],
-        **run)
-    out = offline.communicate(timeout=120)[0]
-    failed = ranks.communicate(timeout=120)[0]
+               stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    started = []
+    try:
+        offline = subprocess.Popen(
+            ["bash", str(scripts / "run_offline.sh"), "GRAPHSAGE",
+             "SYNTHETIC", "--epoch", "1", "--synthetic-edges", "1500",
+             "--synthetic-dim-edge", "8", "--device", "cpu"], **run)
+        started.append(offline)
+        ranks = subprocess.Popen(
+            ["bash", str(scripts / "run_multiprocess.sh"), "TGN",
+             "SYNTHETIC", "2", "all", "localhost:1", "--device", "cpu",
+             "--no-such-flag"], **run)
+        started.append(ranks)
+        out = offline.communicate(timeout=120)[0]
+        failed = ranks.communicate(timeout=120)[0]
+    finally:
+        for p in started:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
     assert offline.returncode == 0, out[-3000:]
     assert "Test ap" in out
     assert (copy / "GRAPHSAGE_torch.ckpt").exists()
