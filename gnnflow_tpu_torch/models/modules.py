@@ -285,6 +285,7 @@ class TemporalAttentionLayer(nn.Module):
         """``h_all`` [B * (1 + F), dim_node] (dst rows, then neighbours),
         or None without node input."""
         B, F = mfg.num_dst, mfg.fanout
+        profiling.count("attention.slots", B * F)
         dev = mfg.nbr_dts.device
         if self.dim_node > 0:
             h_dst = h_all[:B]

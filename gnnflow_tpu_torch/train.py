@@ -569,19 +569,25 @@ class Trainer:
         take, n_uniqs = [3], []
 
         def boundary(layer, prev, sample):
-            caps = tier_caps(factors if layer == 1 else
-                             [self.layer_dedup_deep or factors[-1]],
-                             prev[0].num_all)
-            dd = [dedup_instances(m.all_nodes(), m.all_ts(), m.all_mask(),
-                                  caps[-1]) for m in prev]
-            profiling.count("host_sync.layer_dedup")
-            n = int(torch.stack([d[3] for d in dd]).max())  # one sync
-            n_uniqs.append(n)
-            if layer == 1:
-                take[0] = min(sum(n > c for c in caps), 3)
-            cap = next((c for c in caps if n <= c), None)
-            if cap is None:
-                return None
+            with profiling.span("model.layer_dedup"):
+                caps = tier_caps(factors if layer == 1 else
+                                 [self.layer_dedup_deep or factors[-1]],
+                                 prev[0].num_all)
+                dd = [dedup_instances(m.all_nodes(), m.all_ts(),
+                                      m.all_mask(), caps[-1]) for m in prev]
+                profiling.count("host_sync.layer_dedup")
+                n = int(torch.stack([d[3] for d in dd]).max())  # one sync
+                n_uniqs.append(n)
+                if layer == 1:
+                    take[0] = min(sum(n > c for c in caps), 3)
+                cap = next((c for c in caps if n <= c), None)
+                profiling.count("layer_dedup.rows",
+                                len(prev) * prev[0].num_all)
+                profiling.count("layer_dedup.unique", n)
+                if cap is None:
+                    profiling.count("layer_dedup.overflow")
+                    return None
+                profiling.count("layer_dedup.cap", cap)
             slot = torch.arange(cap, device=roots.device)
             R = torch.stack([torch.where(slot < d[3], d[0][:cap],
                                          INVALID_NID) for d in dd])

@@ -14,7 +14,7 @@ import torch
 from gnnflow_tpu_torch import data
 from gnnflow_tpu_torch.dynamic_graph import DynamicGraph
 from gnnflow_tpu_torch.models.dgnn import DGNN
-from gnnflow_tpu_torch.train import Trainer
+from gnnflow_tpu_torch.train import Trainer, tier_caps
 from gnnflow_tpu_torch.utils import profiling
 
 B = 64
@@ -201,3 +201,89 @@ def test_tracing_changes_no_number(runs):
         assert torch.equal(params_on[k], params_off[k]), k
     for k in mem_off:
         assert torch.equal(mem_on[k], mem_off[k]), k
+
+
+TGAT_CFG = dict(CFG, num_layers=2, dropout=0.1, att_dropout=0.1,
+                use_memory=False, dim_memory=None)
+TGAT_FANOUTS = [4, 4]
+LAYER_DEDUP = ["model.layer_dedup"]
+
+
+def _tgat_run(traced: bool, layer_dedup, steps: int = 3):
+    """A fresh tiny TGAT on the layer dedup at ``layer_dedup``: ``steps``
+    train steps; the tracer (None untraced), the trainer, the losses,
+    parameters, and each step's unique counts and outer instances."""
+    train, _, _, full, _, ef = _stream()
+    g = DynamicGraph(initial_pool_size=4096, minimum_block_size=4)
+    g.add_edges(full.src, full.dst, full.time, full.eid, add_reverse=True)
+    model = DGNN(**TGAT_CFG, seed=1, device="cpu")
+    trainer = Trainer(model, fanouts=TGAT_FANOUTS, sample_strategy="uniform",
+                      layer_dedup=layer_dedup, device="cpu")
+    state = trainer.init_state(g.max_vertex_id() + 1, seed=2)
+    batches = data.get_batches(train, B, data.DstRandEdgeSampler(train.dst,
+                                                                 seed=4))
+    ef = torch.from_numpy(ef)
+    dg = g.device_graph("cpu")
+    tracer = profiling.start_tracing() if traced else None
+    losses, n_uniq = [], []
+    try:
+        for _ in range(steps):
+            losses.append(float(trainer.train_step(state, dg, ef,
+                                                   next(batches))[1]))
+            n_uniq.append(state.layer_dedup_n_uniq)
+    finally:
+        if traced:
+            profiling.stop_tracing()
+    return (tracer, trainer, losses,
+            {k: p.detach().clone() for k, p in model.named_parameters()},
+            n_uniq, 3 * B * (1 + TGAT_FANOUTS[0]))
+
+
+@pytest.mark.parametrize("layer_dedup,overflow", [((0.4, 0.8), False),
+                                                  (0.01, True)])
+def test_layer_dedup_spans_and_counters(layer_dedup, overflow):
+    """One ``model.layer_dedup`` span a boundary, under the sampler; the
+    counters equal the trainer's own unique counts and the caps it took,
+    or count the fallback; no host wait more than the boundary's one."""
+    tracer, trainer, losses, params, n_uniq, rows = _tgat_run(True,
+                                                              layer_dedup)
+    steps = len(n_uniq)
+    spans = [(n, tracer.spans[p][0], s) for n, _, _, p, s in tracer.spans
+             if n in LAYER_DEDUP]
+    assert spans == [("model.layer_dedup", "sampler.sample", i + 1)
+                     for i in range(steps)]
+    assert all(len(n) == 1 for n in n_uniq)
+    caps = tier_caps(trainer._dedup_tiers(), rows)
+    taken = [next((c for c in caps if n[0] <= c), None) for n in n_uniq]
+    assert (None in taken) == overflow
+    want = {"layer_dedup.rows": steps * rows,
+            "layer_dedup.unique": sum(n[0] for n in n_uniq)}
+    if overflow:
+        want["layer_dedup.overflow"] = taken.count(None)
+    if taken.count(None) < steps:
+        want["layer_dedup.cap"] = sum(c for c in taken if c)
+    got = {k: v for k, v in tracer.counters.items()
+           if k.startswith("layer_dedup.")}
+    assert got == want
+    # the boundary's one sync; explicit knobs: no calibration
+    assert {k: v for k, v in tracer.counters.items()
+            if k.startswith("host_sync.")} == {
+        "host_sync.batch_upload": 4 * steps,
+        "host_sync.layer_dedup": steps}
+    # the outer layer's roots, then the inner layer's: cap rows on the
+    # dedup, every outer instance after a fallback
+    assert tracer.counters["attention.slots"] == sum(
+        3 * B * TGAT_FANOUTS[0] + (c or rows) * TGAT_FANOUTS[1]
+        for c in taken)
+    _, _, losses_off, params_off, n_off, _ = _tgat_run(False, layer_dedup)
+    assert losses == losses_off and n_uniq == n_off
+    for k in params_off:
+        assert torch.equal(params[k], params_off[k]), k
+
+
+def test_tgn_step_records_no_layer_dedup(runs):
+    (tracer, *_), _ = runs
+    assert not any(n in LAYER_DEDUP for n, *_ in tracer.spans)
+    assert not any(k.startswith("layer_dedup.") for k in tracer.counters)
+    # three train steps and an eval step, one layer of 3B roots each
+    assert tracer.counters["attention.slots"] == 4 * 3 * B * 4
