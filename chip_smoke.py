@@ -26,15 +26,21 @@ Phases (each prints one line; any failure raises and exits non-zero):
    at the dedup cap).  The GRU backward (K2) and the sorted segment sum
    (K4, segment ids from a real dedup of a stream batch) must also give
    identical bits in two launches.
+3b. sampler: the layer sample's kernel (``csrc/temporal_sample.cu``)
+   against its plain version (``sampling.sample_runs_ref``) on the card,
+   bit for bit, at the main paths' shapes (``phase_sampler``'s
+   docstring); times both and counts the plain version's launches.
 4. slice: TGN streaming link-prediction inference (eval steps of batch
    4000) on a REDDIT-shaped synthetic stream at full width (memory, time
    and embedding dims 100, 2 heads, 172-dim edge features, fanout 10, bf16
-   compute, seeded random weights); K1 and K3 launch once per batch.
+   compute, seeded random weights); K1 and K3 launch once per batch,
+   and the layer sample's kernel once per layer sample, one a batch.
 5. train: TGN training (train steps of batch 4000, dropout 0.2, attention
    dropout 0.2, Adam at lr 1e-4) on the stream's train split at the same
    width, with the default trainer, which calibrates the memory dedup on
    its first step; K1 and K2 launch once per step and K3 never (training
-   with attention dropout routes around it).  Then a few steps at
+   with attention dropout routes around it), and the layer sample's
+   kernel once per layer sample, one a step.  Then a few steps at
    attention dropout 0, where K3 and its backward run once per step.
 6. dedup: the same training with the exact (nid, ts) memory dedup at
    factor 0.35 (benchmarks/benchmark_dedup_step.py:68-75): K4 launches
@@ -123,7 +129,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
    of it (one epoch), then 50 chunks, each scored prequentially (K1, K3),
    ingested, and every 10th followed by the eviction of the edges older
    than a quarter of the stream's time span and replay retraining (K1,
-   K2); the device view must be uploaded once per change of the store.
+   K2); the layer sample's kernel once per layer sample (one an eval
+   batch, the calibration's probes and the retraining steps besides);
+   the device view must be uploaded once per change of the store.
    Logs eval ms per batch, ingest, eviction and retrain ms per step per
    chunk; a second call resumes from the phase-1 checkpoint. Phase 8's
    CPU-card check holds an f32 ``embed_step`` and a prequential eval →
@@ -737,6 +745,169 @@ def _k4_check(torch, w, seg, cap, n_uniq, D):
                 passes_ms=prof if isinstance(prof, str) else prof["top"])
 
 
+SAMPLER_BATCH = 80          # the stream batch of the sampler's first set
+SAMPLER_HOST_CALLS = 200    # calls of each host-clock timing
+TGAT_LADDER = (0.34, 0.49)  # the layer-dedup ladder TGAT calibrates here
+
+
+def _sampler_bytes(roots, u, out) -> int:
+    """The least bytes of one layer sample over the full history: the
+    roots, their timestamps, their runs' offsets and lengths, each valid
+    slot's edge (``e_dst``, ``e_ts``, ``e_eid``), the draws, and the five
+    outputs."""
+    n_valid = int(out["nbr_mask"].sum().item())
+    return (roots.numel() * (8 + 4 + 8) + 12 * n_valid
+            + _nbytes(*out.values()) + (0 if u is None else _nbytes(u)))
+
+
+def _sampler_case(torch, dg, sets, *, fanout, strategy):
+    """S1 on ``sets`` (``(roots, root_ts, u)`` of one shape, the full
+    history, the store shared): every set bit for bit against the plain
+    version, one launch a call; the profiler's device time with the L2
+    cold (sets rotated) and warm, the host's time a call (a clock over
+    ``SAMPLER_HOST_CALLS`` calls ended by a synchronise), and the plain
+    version's launches a call."""
+    from gnnflow_tpu_torch.ops.sampling import sample_runs, sample_runs_ref
+    kw = dict(fanout=fanout, strategy=strategy, prop_time=False)
+    kernel = [lambda a=a: sample_runs(dg, a[0], a[1], None, a[1], u=a[2],
+                                      **kw) for a in sets]
+    plain = [lambda a=a: sample_runs_ref(dg, a[0], a[1], None, a[1],
+                                         u=a[2], **kw) for a in sets]
+    launches = sample_runs.launches
+    for i, (k, p) in enumerate(zip(kernel, plain)):
+        got, want = k(), p()
+        for name, t in got.items():
+            a, b = t, want[name]
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(f"S1 {strategy}: {name} of set {i} "
+                                     f"differs from the plain version")
+    torch.cuda.synchronize()
+    if sample_runs.launches - launches != len(sets):
+        raise AssertionError(f"S1 {strategy}: "
+                             f"{sample_runs.launches - launches} launches "
+                             f"in {len(sets)} calls")
+    roots, _, u = sets[0]
+    out = kernel[0]()
+    nbytes = _sampler_bytes(roots, u, out)
+    bound, by = _bound(nbytes, 0.0, "float32")
+
+    def host_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SAMPLER_HOST_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / SAMPLER_HOST_CALLS
+
+    prof = _profile(torch, lambda _: plain[0](), range(5), top=3)
+    ms = device_ms(torch, kernel)
+    return dict(
+        shape=[roots.shape[0], fanout], strategy=strategy,
+        bit_identical=True, sets=len(sets), ms=ms,
+        ms_warm=device_ms(torch, kernel[:1]),
+        ms_events=cuda_ms_cold(torch, kernel),
+        plain_ms=device_ms(torch, plain), library_ms=None, bound_ms=bound,
+        bound_by=by, share=bound / ms, least_bytes=nbytes,
+        valid_slots=int(out["nbr_mask"].sum().item()),
+        host_ms=host_ms(kernel[0]), plain_host_ms=host_ms(plain[0]),
+        plain_launches=(None if isinstance(prof, str)
+                        else prof["kernels_per_batch"]))
+
+
+def phase_sampler(torch, stream):
+    """S1, the layer sample's kernel (``csrc/temporal_sample.cu``), against
+    its plain version on the card at the main paths' shapes, on the
+    REDDIT-shaped store of phase 4 over the full history.  Recent: the
+    12,000 roots of a train batch of 4000 (sources, destinations,
+    negatives) at fanout 10, as TGN samples them.  Uniform at fanout 10:
+    TGAT's inner layer sample, whose roots are the (node, ts) pairs of the
+    batch's uniform first layer (132,000 instances); the layer dedup hands
+    on the unique pairs at a cap of ``TGAT_LADDER`` (45,056 or 64,768 rows,
+    invalid beyond; TGAT's benchmark cell takes these), here the first
+    ``cap`` unique pairs; an overflow samples all 132,000 padded, which
+    this stream's batches take (phase 9).  Input sets from consecutive
+    batches from ``SAMPLER_BATCH`` on, rotated over 100 MB for the cold
+    times; fresh draws for each.  Returns the kernels row (recent), with
+    the uniform cases under ``uniform``."""
+    from gnnflow_tpu_torch.common import INVALID_NID
+    from gnnflow_tpu_torch.ops.dedup import dedup_instances
+    from gnnflow_tpu_torch.ops.sampling import sample_layer, sample_runs
+    from gnnflow_tpu_torch.train import tier_caps
+    dg, train, F = stream["dg"], stream["train"], 10
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batches = _take(train, 4000, train.dst, SAMPLER_BATCH + 40)
+    batches = batches[SAMPLER_BATCH:]
+
+    def batch_roots(b):
+        return (torch.from_numpy(b.target_nodes).to(dev).long(),
+                torch.from_numpy(b.ts).to(dev).float())
+
+    def draws(n):
+        return torch.rand((n, F), generator=gen, device=dev)
+
+    def inner(b):
+        """TGAT's inner roots at each cap of the ladder, and padded:
+        ``{rows: (roots, ts)}``, and the unique pairs."""
+        roots, ts = batch_roots(b)
+        m = sample_layer(dg, roots, ts, fanout=F, strategy="uniform",
+                         u=draws(roots.shape[0]))
+        caps = tier_caps(TGAT_LADDER, m.num_all)
+        d = dedup_instances(m.all_nodes(), m.all_ts(), m.all_mask(),
+                            caps[-1])
+        n = int(d[3])
+        out = {}
+        for cap in caps:
+            slot = torch.arange(cap, device=dev)
+            out[cap] = (torch.where(slot < n, d[0][:cap], INVALID_NID),
+                        d[1][:cap].contiguous())
+        out[m.num_all] = (m.all_nodes(), m.all_ts())
+        return out, n
+
+    def sets_for(a, strategy):
+        out = sample_runs(dg, a[0], a[1], None, a[1], u=a[2], fanout=F,
+                          strategy=strategy, prop_time=False)
+        return _sets_for(_sampler_bytes(a[0], a[2], out))
+
+    recent = [batch_roots(b) + (None,) for b in batches]
+    recent = recent[:sets_for(recent[0], "recent")]
+    row = _sampler_case(torch, dg, recent, fanout=F, strategy="recent")
+    _log("kernels", kernel="sample_runs", **row)
+    cases, uniq, need = {}, [], None
+    for b in batches:
+        rows, n = inner(b)
+        uniq.append(n)
+        for cap, (R, T) in rows.items():
+            cases.setdefault(cap, []).append((R, T, draws(R.shape[0])))
+        need = need or {cap: sets_for(c[0], "uniform")
+                        for cap, c in cases.items()}
+        if all(len(cases[cap]) >= k for cap, k in need.items()):
+            break
+    uniform = []
+    for cap, sets in cases.items():
+        uniform.append(dict(_sampler_case(torch, dg, sets[:need[cap]],
+                                          fanout=F, strategy="uniform"),
+                            padded=cap == max(cases), ladder=TGAT_LADDER,
+                            unique_pairs=uniq[:need[cap]]))
+        _log("kernels", kernel="sample_runs", **uniform[-1])
+    return dict(
+        name="sample_runs", route="cuda",
+        source="gnnflow_tpu_torch/csrc/temporal_sample.cu",
+        replaces=None, shapes={"roots": row["shape"][0], "fanout": F},
+        dtype="float32",
+        **{k: row[k] for k in ("ms", "ms_warm", "ms_events", "plain_ms",
+                               "library_ms", "bound_ms", "bound_by",
+                               "host_ms", "plain_host_ms",
+                               "plain_launches")},
+        input_sets=row["sets"], uniform=uniform,
+        library_note="none: torch.searchsorted searches one sorted row "
+                     "per query, not a run inside one pool",
+        timing_note=TIMING_NOTE)
+
+
 TGN = dict(dim_node=0, dim_time=100, dim_embed=100, num_layers=1,
            num_snapshots=1, att_head=2, dropout=0.2, att_dropout=0.2,
            use_memory=True, dim_memory=100)
@@ -987,10 +1158,40 @@ def _reset(kernels) -> None:
 
 
 def _check_launches(launches, expected, what) -> None:
-    for name, n in launches.items():
-        if n != expected[name]:
-            raise AssertionError(f"{name} launched {n} times in {what}, "
-                                 f"expected {expected[name]}")
+    """Each kernel named in ``expected`` launched that many times."""
+    for name, n in expected.items():
+        if launches[name] != n:
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 f"in {what}, expected {n}")
+
+
+@contextlib.contextmanager
+def _layer_samples():
+    """Within the block, count the layer samples: the calls of
+    ``sample_layer`` and ``sample_layer_snapshots`` (from the trainer and
+    from ``sample_hops``, which look them up in their modules).  Yields a
+    one-element list holding the count."""
+    from gnnflow_tpu_torch import train
+    from gnnflow_tpu_torch.ops import sampling
+    n, saved = [0], {}
+    for name in ("sample_layer", "sample_layer_snapshots"):
+        def counted(*args, _fn=getattr(sampling, name), **kwargs):
+            n[0] += 1
+            return _fn(*args, **kwargs)
+        for mod in (sampling, train):
+            saved[mod, name] = getattr(mod, name)
+            setattr(mod, name, counted)
+    try:
+        yield n
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def _check_samples(samples, want, what) -> None:
+    if samples != want:
+        raise AssertionError(f"{samples} layer samples in {what}, "
+                             f"expected {want}")
 
 
 def phase_slice(torch, kernels, stream):
@@ -1017,11 +1218,12 @@ def phase_slice(torch, kernels, stream):
     end = torch.cuda.Event(enable_timing=True)
     t_host = time.perf_counter()
     start.record()
-    for b in batches[warm:]:
-        _, loss, pos, neg = trainer.eval_step(state, dg, ef, b)
-        pos_all.append(pos[:b.num_valid])
-        neg_all.append(neg[:b.num_valid])
-        losses.append(loss)
+    with _layer_samples() as samples:
+        for b in batches[warm:]:
+            _, loss, pos, neg = trainer.eval_step(state, dg, ef, b)
+            pos_all.append(pos[:b.num_valid])
+            neg_all.append(neg[:b.num_valid])
+            losses.append(loss)
     end.record()
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t_host
@@ -1039,10 +1241,12 @@ def phase_slice(torch, kernels, stream):
     if not finite or len(pos) != runs * B:
         raise AssertionError("slice produced non-finite values or wrong "
                              "shapes")
+    _check_samples(samples[0], runs, f"{runs} eval batches")
     _check_launches(launches, {"gru_memory_fused": runs,
                                "gru_memory_fused_bwd": 0,
                                "neighborhood_attention": runs,
-                               "sorted_segment_sum": 0},
+                               "sorted_segment_sum": 0,
+                               "sample_runs": runs},
                     f"{runs} eval batches")
     prof = _profile(torch, lambda b: trainer.eval_step(state, dg, ef, b),
                     batches[warm:warm + 5])
@@ -1102,10 +1306,11 @@ def phase_train(torch, kernels, stream):
     end = torch.cuda.Event(enable_timing=True)
     t_host = time.perf_counter()
     start.record()
-    for b in batches[warm:warm + runs]:
-        _, loss, _, _ = trainer.train_step(state, dg, ef, b)
-        losses.append(loss)
-        fast += _fast_steps(trainer, state, 3 * B * 11)
+    with _layer_samples() as samples:
+        for b in batches[warm:warm + runs]:
+            _, loss, _, _ = trainer.train_step(state, dg, ef, b)
+            losses.append(loss)
+            fast += _fast_steps(trainer, state, 3 * B * 11)
     end.record()
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t_host
@@ -1117,10 +1322,12 @@ def phase_train(torch, kernels, stream):
             and _all_finite(torch, state, model)):
         raise AssertionError("training produced a non-finite loss, "
                              "parameter or memory value")
+    _check_samples(samples[0], runs, f"{runs} train steps")
     _check_launches(launches, {"gru_memory_fused": runs,
                                "gru_memory_fused_bwd": runs,
                                "neighborhood_attention": 0,
-                               "sorted_segment_sum": fast},
+                               "sorted_segment_sum": fast,
+                               "sample_runs": runs},
                     f"{runs} train steps at att_dropout=0.2")
     prof = _profile(torch, lambda b: trainer.train_step(state, dg, ef, b),
                     batches[warm + runs:warm + runs + 5])
@@ -1133,8 +1340,9 @@ def phase_train(torch, kernels, stream):
     state0 = trainer0.init_state(g.max_vertex_id() + 1, seed=0)
     _reset(kernels)
     bwd0 = attention_autograd.backward_calls
-    losses0 = [trainer0.train_step(state0, dg, ef, b)[1]
-               for b in batches[-extra:]]
+    with _layer_samples() as samples0:
+        losses0 = [trainer0.train_step(state0, dg, ef, b)[1]
+                   for b in batches[-extra:]]
     torch.cuda.synchronize()
     launches0 = {name: fn.launches for name, fn in kernels.items()}
     att_bwd = attention_autograd.backward_calls - bwd0
@@ -1143,10 +1351,13 @@ def phase_train(torch, kernels, stream):
             and _all_finite(torch, state0, model0)):
         raise AssertionError("training at att_dropout=0 produced a "
                              "non-finite value")
+    _check_samples(samples0[0], extra,
+                   f"{extra} train steps at att_dropout=0")
     _check_launches(launches0, {"gru_memory_fused": extra,
                                 "gru_memory_fused_bwd": extra,
                                 "neighborhood_attention": extra,
-                                "sorted_segment_sum": 0},
+                                "sorted_segment_sum": 0,
+                                "sample_runs": extra},
                     f"{extra} train steps at att_dropout=0")
     if att_bwd != extra:
         raise AssertionError(f"K3's backward ran {att_bwd} times in "
@@ -2513,15 +2724,18 @@ ONLINE_STEPS, RETRAIN_EVERY = 50, 10
 
 def _launches_by_method(kernels, cls, names):
     """Wrap ``cls``'s methods ``names`` so that each call adds the kernel
-    launches made inside it to that method's counts (from 0); returns the
-    counts and a function that puts the methods back."""
+    launches made inside it to that method's counts (from 0), and one to
+    ``counts["calls"][name]``; returns the counts and a function that puts
+    the methods back."""
     counts = {n: {k: 0 for k in kernels} for n in names}
+    counts["calls"] = {n: 0 for n in names}
     orig = {n: getattr(cls, n) for n in names}
 
     def wrap(name):
         fn = orig[name]
 
         def run(*args, **kwargs):
+            counts["calls"][name] += 1
             before = {k: f.launches for k, f in kernels.items()}
             try:
                 return fn(*args, **kwargs)
@@ -2577,13 +2791,15 @@ def phase_online(torch, kernels):
                                           ["eval_step", "train_step"])
     try:
         t0 = time.perf_counter()
-        out = online.main(argv, checkpoint_path=ckpt)
+        with _layer_samples() as samples:
+            out = online.main(argv, checkpoint_path=ckpt)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     finally:
         restore()
     launches = {"online_eval": counts["eval_step"],
                 "online_retrain": counts["train_step"]}
+    sampled = kernels["sample_runs"].launches
     scores = out["aps"] + out["aucs"]
     chunk = (len(full) - int(0.3 * len(full))) // ONLINE_STEPS
     n_eval = -(-chunk // min(4000, max(256, chunk)))
@@ -2600,6 +2816,13 @@ def phase_online(torch, kernels):
     if not (ev["gru_memory_fused"] and ev["neighborhood_attention"]
             and tr["gru_memory_fused"] and tr["gru_memory_fused_bwd"]):
         bad.append(f"launches {launches}")
+    # one launch per layer sample: one an eval batch (one layer, no
+    # calibration), and the training steps' and calibration probes'
+    if sampled != samples[0] or ev["sample_runs"] != counts["calls"][
+            "eval_step"] or not tr["sample_runs"]:
+        bad.append(f"{sampled} sampler launches for {samples[0]} layer "
+                   f"samples, {ev['sample_runs']} for "
+                   f"{counts['calls']['eval_step']} eval batches")
     if bad:
         raise AssertionError(f"online: {bad}")
 
@@ -2614,7 +2837,8 @@ def phase_online(torch, kernels):
                retrain_ms_per_step=out["retrain_ms"],
                mean_ap=mean(out["aps"]), mean_auc=mean(out["aucs"]),
                uploads=out["uploads"], store_changes=out["store_changes"],
-               launches=launches,
+               launches=launches, calls=counts["calls"],
+               layer_samples=samples[0],
                per_chunk=dict(eval_ms_per_batch=out["eval_ms"],
                               ingest_ms=out["ingest_ms"], ap=out["aps"],
                               auc=out["aucs"]))
@@ -5021,15 +5245,18 @@ def main() -> int:
     from gnnflow_tpu_torch.ops.attention_fused import neighborhood_attention
     from gnnflow_tpu_torch.ops.gru_fused import (gru_memory_fused,
                                                  gru_memory_fused_bwd)
+    from gnnflow_tpu_torch.ops.sampling import sample_runs
     from gnnflow_tpu_torch.ops.segment_sum import sorted_segment_sum
     phase_build()
     stream = reddit_stream(torch)
     phase_ingest(torch, stream)
     rows = phase_kernels(torch, stream)
+    rows.append(phase_sampler(torch, stream))
     kernels = {"gru_memory_fused": gru_memory_fused,
                "gru_memory_fused_bwd": gru_memory_fused_bwd,
                "neighborhood_attention": neighborhood_attention,
-               "sorted_segment_sum": sorted_segment_sum}
+               "sorted_segment_sum": sorted_segment_sum,
+               "sample_runs": sample_runs}
     sl = phase_slice(torch, kernels, stream)
     tr = phase_train(torch, kernels, stream)
     dd = phase_dedup(torch, kernels, stream)

@@ -23,9 +23,17 @@ each product rounded before the subtraction, so an edge one ulp from a
 boundary falls in the same snapshot on both sides.  (XLA on the CPU keeps
 that rounding at the shapes the tests use; in a program of a few rows it
 contracts the chained bound into one FMA.)
+
+Both layer samplers compute their window bounds here and hand the
+search and the picks to :func:`sample_runs`: for CUDA tensors one launch
+of ``csrc/temporal_sample.cu`` (``sample_runs.launches`` counts them),
+for CPU tensors the plain version :func:`sample_runs_ref`, a vectorised
+binary search of ``search_iters`` rounds and a gather; the two give the
+same bits.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -33,6 +41,7 @@ import torch
 
 from gnnflow_tpu_torch.common import INVALID_NID, MFG
 from gnnflow_tpu_torch.dynamic_graph import DeviceGraph
+from gnnflow_tpu_torch.ops import _build
 from gnnflow_tpu_torch.utils import profiling
 
 Draw = Callable[[int, tuple], torch.Tensor]
@@ -94,9 +103,6 @@ def _picks(g: DeviceGraph, roots, root_ts, off, s_idx, e_idx, *,
         mask = pick >= s_idx[..., None]
     else:
         want = tuple(roots.shape) + (fanout,)
-        if u is None or tuple(u.shape) != want or u.dtype != torch.float32:
-            raise ValueError(f"uniform sampling needs u of shape {want} "
-                             f"and float32")
         # slot k takes candidate min(int(u * nc), nc - 1) back from the
         # newest; u * nc in f32, truncated as astype(int32) does
         nc = (e_idx - s_idx)[..., None]
@@ -112,6 +118,140 @@ def _picks(g: DeviceGraph, roots, root_ts, off, s_idx, e_idx, *,
                 nbr_dts=torch.where(mask, rts - edge_ts, 0.0),
                 nbr_eids=torch.where(mask, g.e_eid[idx].long(), 0),
                 nbr_mask=mask)
+
+
+def _check_draws(roots: torch.Tensor, fanout: int, strategy: str,
+                 u: Optional[torch.Tensor]) -> None:
+    if strategy not in ("recent", "uniform"):
+        raise ValueError(f"strategy must be 'recent' or 'uniform', got "
+                         f"{strategy!r}")
+    want = tuple(roots.shape) + (fanout,)
+    if strategy == "uniform" and (u is None or tuple(u.shape) != want
+                                  or u.dtype != torch.float32):
+        raise ValueError(f"uniform sampling needs u of shape {want} "
+                         f"and float32")
+
+
+def sample_runs_ref(g: DeviceGraph, roots: torch.Tensor,
+                    root_ts: torch.Tensor, start: Optional[torch.Tensor],
+                    end: torch.Tensor, *, fanout: int, strategy: str,
+                    prop_time: bool, u: Optional[torch.Tensor]) -> dict:
+    """Plain version of :func:`sample_runs`: the runs' offsets and
+    lengths, a binary search of ``g.search_iters`` rounds for each bound,
+    then the picks' gathers."""
+    _check_draws(roots, fanout, strategy, u)
+    off, ln = _root_off_len(g, roots)
+    if start is None:
+        s_idx = torch.zeros_like(ln)
+        e_idx = _lower_bound(g.e_ts, off, ln, end, g.search_iters)
+    else:
+        s_idx, e_idx = _lower_bound(g.e_ts, off, ln, torch.stack([start, end]),
+                                    g.search_iters)
+    return _picks(g, roots, root_ts, off, s_idx, e_idx, fanout=fanout,
+                  strategy=strategy, prop_time=prop_time, u=u)
+
+
+# the kernel's outputs, in the order of its arguments
+_FIELDS = dict(nbr_nids=torch.int64, nbr_ts=torch.float32,
+               nbr_dts=torch.float32, nbr_eids=torch.int64,
+               nbr_mask=torch.bool)
+
+
+def _rows(t: torch.Tensor, name: str, shape: tuple, dtype) -> int:
+    """The row stride of ``t`` ([B] or [S, B] with contiguous rows) as the
+    kernel reads it; raises on what it does not take."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    if t.numel() and t.stride(-1) != 1:
+        raise ValueError(f"{name} must be contiguous along its last axis")
+    return t.stride(0) if t.dim() == 2 else 0
+
+
+def sample_runs(g: DeviceGraph, roots: torch.Tensor, root_ts: torch.Tensor,
+                start: Optional[torch.Tensor], end: torch.Tensor, *,
+                fanout: int, strategy: str, prop_time: bool,
+                u: Optional[torch.Tensor]) -> dict:
+    """The padded neighbour fields of one layer sample (``nbr_nids``,
+    ``nbr_ts``, ``nbr_dts``, ``nbr_eids``, ``nbr_mask``, each
+    ``roots.shape + (fanout,)``).
+
+    ``roots`` [B] or [S, B] int64 (``INVALID_NID`` for padded rows),
+    ``root_ts``, ``start`` and ``end`` of its shape, float32: each row's
+    candidates are the edges of its root's run with ``start <= ts < end``
+    (``start`` None: the whole run before ``end``).  ``u``: uniform
+    draws, ``roots.shape + (fanout,)`` float32.
+
+    CPU tensors run :func:`sample_runs_ref`.  CUDA tensors launch
+    ``csrc/temporal_sample.cu`` once, or raise: rows may repeat (a row
+    stride of 0) but each must be contiguous, the graph's arrays
+    contiguous int32 (``e_ts`` float32), and ``u`` contiguous.  The
+    kernel finds each bound exactly, ``g.search_iters`` aside."""
+    if roots.device.type == "cpu":
+        return sample_runs_ref(g, roots, root_ts, start, end, fanout=fanout,
+                               strategy=strategy, prop_time=prop_time, u=u)
+    _check_draws(roots, fanout, strategy, u)
+    if roots.dim() not in (1, 2):
+        raise ValueError(f"roots must be [B] or [S, B], got "
+                         f"{tuple(roots.shape)}")
+    shape = tuple(roots.shape)
+    strides = [_rows(roots, "roots", shape, torch.int64),
+               _rows(root_ts, "root_ts", shape, torch.float32),
+               0 if start is None else _rows(start, "start", shape,
+                                             torch.float32),
+               _rows(end, "end", shape, torch.float32)]
+    graph = (g.row_off, g.row_len, g.e_dst, g.e_ts, g.e_eid)
+    for name, t in zip(("row_off", "row_len", "e_dst", "e_ts", "e_eid"),
+                       graph):
+        want = torch.float32 if name == "e_ts" else torch.int32
+        if t.dtype != want or t.dim() != 1 or not t.is_contiguous():
+            raise TypeError(f"the graph's {name} must be contiguous 1-d "
+                            f"{want}")
+    if u is not None and not u.is_contiguous():
+        raise ValueError("u must be contiguous")
+    given = [roots, root_ts, end, *graph] + [t for t in (start, u)
+                                            if t is not None]
+    if any(t.device != roots.device for t in given):
+        raise ValueError("sample_runs needs every tensor on "
+                         f"{roots.device}")
+    S, B = shape if len(shape) == 2 else (1, shape[0])
+    if S * B >= 2 ** 31 or fanout >= 2 ** 31:
+        raise ValueError(f"{S} x {B} rows of {fanout} exceed the kernel's "
+                         f"int32 sizes")
+    dev = roots.device
+    out = {k: torch.empty(shape + (fanout,), dtype=d, device=dev)
+           for k, d in _FIELDS.items()}
+    if S * B == 0 or fanout == 0:
+        return out
+    lib = _lib()
+    err = lib.temporal_sample(
+        g.row_off.data_ptr(), g.row_len.data_ptr(), g.row_off.shape[0],
+        g.e_dst.data_ptr(), g.e_ts.data_ptr(), g.e_eid.data_ptr(),
+        g.e_ts.shape[0], roots.data_ptr(), strides[0], root_ts.data_ptr(),
+        strides[1], None if start is None else start.data_ptr(), strides[2],
+        end.data_ptr(), strides[3], None if u is None else u.data_ptr(),
+        S, B, fanout, int(prop_time), *(t.data_ptr() for t in out.values()),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, "temporal_sample")
+    sample_runs.launches += 1
+    profiling.count("sampler.kernel_rows", S * B)
+    return out
+
+
+sample_runs.launches = 0
+
+
+def _lib():
+    lib = _build.load("temporal_sample")
+    if lib.temporal_sample.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.temporal_sample.argtypes = [p, p, ll, p, p, p, ll, p, ll, p, ll,
+                                        p, ll, p, ll, p, i, i, i, i,
+                                        p, p, p, p, p, p]
+        lib.temporal_sample.restype = i
+    return lib
 
 
 def sample_layer(g: DeviceGraph, roots: torch.Tensor, root_ts: torch.Tensor,
@@ -131,24 +271,17 @@ def sample_layer(g: DeviceGraph, roots: torch.Tensor, root_ts: torch.Tensor,
     ``roots`` may hold ``INVALID_NID`` (padded rows): they give fully
     masked rows.  Edges at exactly a window's end are excluded (strict
     ``<``)."""
-    if strategy not in ("recent", "uniform"):
-        raise ValueError(f"strategy must be 'recent' or 'uniform', got "
-                         f"{strategy!r}")
-    roots = roots.long()
-    root_ts = root_ts.float()
-    off, ln = _root_off_len(g, roots)
-    start, end = snapshot_window(root_ts, snapshot_idx, num_snapshots,
-                                 window)
+    roots = roots.long().contiguous()
+    root_ts = root_ts.float().contiguous()
     if num_snapshots == 1 and abs(window) < 1e-6:
         # the full history: every run starts at slot 0
-        s_idx = torch.zeros_like(ln)
-        e_idx = _lower_bound(g.e_ts, off, ln, end, g.search_iters)
+        start, end = None, root_ts
     else:
-        s_idx, e_idx = _lower_bound(g.e_ts, off, ln, torch.stack([start, end]),
-                                    g.search_iters)
+        start, end = snapshot_window(root_ts, snapshot_idx, num_snapshots,
+                                     window)
     return MFG(root_nids=roots, root_ts=root_ts,
-               **_picks(g, roots, root_ts, off, s_idx, e_idx, fanout=fanout,
-                        strategy=strategy, prop_time=prop_time, u=u))
+               **sample_runs(g, roots, root_ts, start, end, fanout=fanout,
+                             strategy=strategy, prop_time=prop_time, u=u))
 
 
 def sample_layer_snapshots(g: DeviceGraph, roots: torch.Tensor,
@@ -162,41 +295,32 @@ def sample_layer_snapshots(g: DeviceGraph, roots: torch.Tensor,
     ``s``; uniform draws ``u`` are [S, B, fanout].  Returns S MFGs.
 
     ``shared_roots=True`` states that every row holds the same roots (the
-    first layer); their runs are then looked up once and the S snapshots'
-    2S bounds become the S + 1 chained boundaries ``ts - (S - j)·W``.  The
-    bounds are float32 products, rounded, then subtracted, as the JAX
-    function computes them."""
-    if strategy not in ("recent", "uniform"):
-        raise ValueError(f"strategy must be 'recent' or 'uniform', got "
-                         f"{strategy!r}")
+    first layer); every row then takes the runs of row 0, and the S
+    snapshots' 2S bounds are the S + 1 chained boundaries
+    ``ts - (S - j)·W``.  The bounds are float32 products, rounded, then
+    subtracted, as the JAX function computes them."""
     S, B = roots.shape
     roots = roots.long()
     root_ts = root_ts.float()
     dev = roots.device
     W = torch.tensor(window, dtype=torch.float32, device=dev)
+    runs = roots
     if shared_roots and num_snapshots > 1:
-        off1, ln1 = _root_off_len(g, roots[0])
+        # the runs of row 0, and snapshot s between boundaries s and s + 1
+        runs = roots[0][None].expand(S, B)
         j = torch.arange(S + 1, dtype=torch.float32, device=dev)[:, None]
-        bounds = _lower_bound(g.e_ts, off1, ln1,
-                              root_ts[0][None] - (num_snapshots - j) * W,
-                              g.search_iters)               # [S + 1, B]
-        s_idx, e_idx = bounds[:S], bounds[1:]
-        off = off1[None].expand(S, B)
+        bounds = root_ts[0][None] - (num_snapshots - j) * W   # [S + 1, B]
+        start, end = bounds[:S], bounds[1:]
+    elif num_snapshots == 1:
+        end = root_ts
+        start = (torch.zeros_like(root_ts) if abs(window) < 1e-6
+                 else root_ts - W)
     else:
-        off, ln = _root_off_len(g, roots)
-        if num_snapshots == 1:
-            end = root_ts
-            start = (torch.zeros_like(root_ts) if abs(window) < 1e-6
-                     else root_ts - W)
-        else:
-            snap = torch.arange(S, dtype=torch.float32, device=dev)[:, None]
-            end = root_ts - (num_snapshots - snap - 1) * W
-            start = root_ts - (num_snapshots - snap) * W
-        s_idx, e_idx = _lower_bound(g.e_ts, off, ln,
-                                    torch.stack([start, end]),
-                                    g.search_iters)         # [2, S, B]
-    f = _picks(g, roots, root_ts, off, s_idx, e_idx, fanout=fanout,
-               strategy=strategy, prop_time=prop_time, u=u)
+        snap = torch.arange(S, dtype=torch.float32, device=dev)[:, None]
+        end = root_ts - (num_snapshots - snap - 1) * W
+        start = root_ts - (num_snapshots - snap) * W
+    f = sample_runs(g, runs, root_ts, start, end, fanout=fanout,
+                    strategy=strategy, prop_time=prop_time, u=u)
     return [MFG(root_nids=roots[s], root_ts=root_ts[s],
                 **{k: v[s] for k, v in f.items()}) for s in range(S)]
 

@@ -44,6 +44,7 @@ from gnnflow_tpu_torch.ops.gru_fused import (
 from gnnflow_tpu_torch.ops.segment_sum import (expand_compact,
                                                sorted_segment_sum,
                                                sorted_segment_sum_ref)
+from torch_fixtures import cuda, one_cpu_thread  # noqa: F401
 
 GRAD_NAMES = ("dki", "dbi", "dkh", "dbh", "dtw", "dtb")
 
@@ -70,19 +71,6 @@ def _attention_inputs(B=300, F=10, H=2, dh=50, seed=0):
     if B > 3:
         mask[3] = False                  # one row fully masked
     return q, k, v, mask
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_cpu_thread():
-    """Run the plain versions on one CPU thread.  On a CPU host with
-    AVX-512 and AMX, the first multi-threaded f32 matmul of a process that
-    also runs JAX has returned one thread's 64-row block ~1e-4 off (3 of
-    10 processes); on one thread the values are the same in every
-    process."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -335,14 +323,6 @@ def test_attention_plan(shape, want):
     per_warp = 4 if pl["staged"] else 1
     assert pl["blocks"] * pl["warps"] * per_warp >= B
     assert (pl["blocks"] - 1) * pl["warps"] * per_warp < B
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
 
 
 # the card's tiles take 64 rows and pad K and the gate columns to 16 and 8:
