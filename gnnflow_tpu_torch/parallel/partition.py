@@ -50,11 +50,6 @@ class Partition:
         return len(self.src_nodes)
 
 
-def _empty_partition():
-    return Partition(np.zeros(0, np.int64), np.zeros(0, np.int64),
-                     np.zeros(0, np.float32), np.zeros(0, np.int64))
-
-
 def _concat(a: Partition, b: Partition) -> Partition:
     return Partition(np.concatenate([a.src_nodes, b.src_nodes]),
                      np.concatenate([a.dst_nodes, b.dst_nodes]),

@@ -39,7 +39,6 @@ from gnnflow_tpu.models.dgnn import DGNN as JDGNN
 from gnnflow_tpu.ops.apan_kv import apan_table_pull as japan_pull
 from gnnflow_tpu.ops.dedup import dedup_instances as jdedup
 from gnnflow_tpu.train import Trainer as JTrainer
-from gnnflow_tpu_torch.common import MFG
 from gnnflow_tpu_torch.dynamic_graph import DynamicGraph
 from gnnflow_tpu_torch.models import memory as memory_lib
 from gnnflow_tpu_torch.models.dgnn import DGNN
@@ -49,57 +48,17 @@ from gnnflow_tpu_torch.ops.apan_kv import (apan_table_pull,
                                            apan_table_pull_ref)
 from gnnflow_tpu_torch.ops.dedup import dedup_instances
 from gnnflow_tpu_torch.train import Trainer, dedup_factor_for
-from tests.test_torch_kernels import one_cpu_thread  # noqa: F401
-from tests.test_torch_slice import _stream, interpret_attention  # noqa: F401
-from tests.test_torch_slice import jax_state
-from tests.test_torch_train import _batches, _flat
+from torch_fixtures import one_cpu_thread  # noqa: F401
+from torch_fixtures import _flat, _stream
+from torch_parity import interpret_attention  # noqa: F401
+from torch_parity import (_assert_memory, _batches, _filled_memory,
+                          _jax_memory, _mfgs, _np, jax_state)
 
 S = 3
 APAN = dict(dim_node=0, dim_edge=6, dim_time=8, dim_embed=8, num_layers=1,
             num_snapshots=1, att_head=2, dropout=0.0, att_dropout=0.0,
             use_memory=True, dim_memory=8, memory_updater="transformer",
             mailbox_slots=S)
-MEMORY_FIELDS = ("node_memory", "node_memory_ts", "mailbox", "mailbox_ts",
-                 "mailbox_ptr")
-
-
-def _np(x):
-    return x.detach().numpy() if isinstance(x, torch.Tensor) \
-        else np.asarray(x)
-
-
-def _jax_memory(mem):
-    """The JAX state holding the port's state's values."""
-    return jmemory.restore_memory({f: _np(getattr(mem, f)).astype(np.float32)
-                                   for f in MEMORY_FIELDS})
-
-
-def _assert_memory(mem, jmem, atol):
-    for f in MEMORY_FIELDS:
-        got, want = _np(getattr(mem, f)).astype(np.float32), \
-            _np(getattr(jmem, f))
-        if f.endswith(("_ts", "_ptr")) or atol == 0:
-            assert np.array_equal(got, want), f
-        else:
-            np.testing.assert_allclose(got, want, rtol=0, atol=atol,
-                                       err_msg=f)
-
-
-def _filled_memory(rng, n, slots, dm=8, de=6):
-    """A state of ``n`` nodes with random memory and mails, timestamps
-    below 1e3, a few slots never written (ts 0) and random cursors."""
-    mem = memory_lib.init_memory(n, dm, de, "cpu", slots)
-    for f in ("node_memory", "mailbox"):
-        t = getattr(mem, f)
-        t.copy_(torch.from_numpy(rng.randn(*t.shape).astype(np.float32)))
-    mem.node_memory_ts.copy_(torch.from_numpy(
-        (rng.rand(n) * 500).astype(np.float32)))
-    mts = (rng.rand(*mem.mailbox_ts.shape) * 500).astype(np.float32)
-    mts[rng.rand(*mts.shape) < 0.2] = 0.0
-    mem.mailbox_ts.copy_(torch.from_numpy(mts))
-    if slots > 1:
-        mem.mailbox_ptr.copy_(torch.from_numpy(rng.randint(0, 7, n)))
-    return mem
 
 
 @pytest.mark.parametrize("slots", [1, S])
@@ -207,25 +166,6 @@ def _dummy_inputs(cfg, b=6, f=5):
                               mailbox_slots=cfg["mailbox_slots"])
     return [[mfg]], [None], [[jnp.zeros((b, f, cfg["dim_edge"]))]], \
         jmemory.prepare_input(mem, mfg)
-
-
-def _mfgs(rng, n, b=12, f=5):
-    """The same MFG on both sides: repeated ids, invalid slots, small
-    timestamps (below 1e3)."""
-    nbr = rng.randint(0, n, (b, f))
-    mask = rng.rand(b, f) < 0.7
-    nbr[~mask] = -1
-    root_ts = (rng.rand(b) * 400 + 500).astype(np.float32)
-    nbr_ts = np.where(mask, root_ts[:, None] - rng.rand(b, f) * 300,
-                      0).astype(np.float32)
-    nbr_ts[:, 1] = nbr_ts[:, 0]                     # repeated (nid, ts)
-    nbr[:, 1] = nbr[:, 0]
-    cols = (rng.randint(0, n, b), root_ts, nbr, nbr_ts,
-            (root_ts[:, None] - nbr_ts).astype(np.float32),
-            np.zeros((b, f), np.int64), mask)
-    return MFG(*[torch.from_numpy(np.asarray(c)) for c in cols]), \
-        JMFG(*[jnp.asarray(c, jnp.int32 if np.asarray(c).dtype == np.int64
-                           else None) for c in cols])
 
 
 @pytest.mark.parametrize("path", ["table", "per_instance", "dedup",

@@ -44,10 +44,9 @@ from gnnflow_tpu_torch.temporal_sampler import TemporalSampler
 from gnnflow_tpu_torch.train import Trainer
 from gnnflow_tpu_torch.utils.profiling import (PhaseTimer,
                                                device_memory_stats)
-from tests.test_torch_apan import _jax_memory
-from tests.test_torch_kernels import one_cpu_thread  # noqa: F401
-from tests.test_torch_tgat import _assert_mfgs_identical
-from tests.test_torch_train import _assert_memory_equal, _flat
+from torch_fixtures import one_cpu_thread  # noqa: F401
+from torch_fixtures import _assert_mfgs_identical, _flat
+from torch_parity import _assert_memory_equal, _jax_memory
 
 B = 100
 POLICIES = ["LRUCache", "LFUCache", "FIFOCache", "GNNLabStaticCache"]

@@ -41,10 +41,10 @@ from gnnflow_tpu_torch.ops.segment_sum import (expand_compact,
                                                sorted_segment_sum,
                                                sorted_segment_sum_ref)
 from gnnflow_tpu_torch.train import Trainer, link_pred_loss
-from tests.test_torch_kernels import one_cpu_thread  # noqa: F401
-from tests.test_torch_slice import B, _stream, interpret_attention  # noqa: F401
-from tests.test_torch_slice import jax_state
-from tests.test_torch_train import CFG, _assert_memory_equal, _batches, _flat
+from torch_fixtures import one_cpu_thread  # noqa: F401
+from torch_fixtures import B, CFG, _flat, _stream
+from torch_parity import interpret_attention  # noqa: F401
+from torch_parity import _assert_memory_equal, _batches, jax_state
 
 
 def _pairs(case, L=1500, seed=0):

@@ -4,10 +4,11 @@ sharded node features, the cache over sharded masters, the multiprocess
 script's ``--cache``, bf16 memory storage and the parity harness, against
 the JAX package.
 
-One spawn of two gloo ranks serves the module (``_ranks``, a ``file://``
-rendezvous under ``tmp_path``, each rank on one thread; the rank
-functions import no jax), beside one single-rank spawn of the
-multiprocess script; the JAX references run in this process meanwhile.
+One spawn of two gloo ranks serves the module
+(``torch_ranks._memory_ranks``, a ``file://`` rendezvous under
+``tmp_path``, each rank on one thread; the rank functions import no jax),
+beside one single-rank spawn of the multiprocess script; the JAX
+references run in this process meanwhile.
 
 Tolerances:
 - loaders: bit-equal edge tables and feature rows (the same csv and npy
@@ -41,7 +42,6 @@ Tolerances:
   relative: a value within f32 rounding of a rounding boundary may land
   on the other side), timestamps exact.
 """
-import math
 import os
 import pickle
 import time
@@ -51,257 +51,18 @@ import pytest
 import torch
 
 from gnnflow_tpu_torch import data
-from gnnflow_tpu_torch.cache import FIFOCache, LRUCache
 from gnnflow_tpu_torch.dynamic_graph import DynamicGraph
 from gnnflow_tpu_torch.models import memory as memory_lib
 from gnnflow_tpu_torch.models.dgnn import DGNN
 from gnnflow_tpu_torch.models.weights import flax_param_tree
-from gnnflow_tpu_torch.parallel import (PartitionedDynamicGraph,
-                                        PartitionedTrainer, ShardedTable,
-                                        dispatch_full_dataset,
-                                        get_partitioner, shard_memory_state,
-                                        spawn, unshard_memory)
-from gnnflow_tpu_torch.temporal_sampler import TemporalSampler
+from gnnflow_tpu_torch.parallel import spawn
 from gnnflow_tpu_torch.train import Trainer
-
-TGN = dict(dim_node=6, dim_edge=6, dim_time=8, dim_embed=8, num_layers=1,
-           num_snapshots=1, att_head=2, dropout=0.0, att_dropout=0.0,
-           use_memory=True, dim_memory=8)
-APAN = dict(TGN, dim_node=0, memory_updater="transformer", mailbox_slots=3)
-# "apan_table": APAN on its K/V table pull, which each rank serves from
-# its own block of sharded memory (JAX's reference is the same run: its
-# trainer takes the table by default)
-MODELS = {"tgn": TGN, "apan": APAN, "apan_table": APAN}
-B = 64                     # batches of 64, 64, 64 and 20 (all on rank 0)
-MEMORY = ("node_memory", "node_memory_ts", "mailbox", "mailbox_ts",
-          "mailbox_ptr")
-CACHE_BATCHES = 5
-# one epoch: TGN's batch of 4000 pads the stream's 2,100 train edges into
-# one step over 132,000 memory instances, ~4 s on one CPU thread
-MP_CACHE = ["--model", "TGN", "--epoch", "1", "--synthetic-edges", "3000",
-            "--device", "cpu", "--coordinator", "unused:0", "--cache",
-            "LRUCache", "--edge-cache-ratio", "0.3"]
-MP_LR = 1e-4
-
-
-@pytest.fixture(autouse=True)
-def one_cpu_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def _stream():
-    return data.make_synthetic_dataset(num_src=60, num_dst=20,
-                                       num_edges=600, dim_edge=6,
-                                       dim_node=6, seed=5)
-
-
-def _batches(get_batches, sampler, full):
-    return get_batches(full[:212], B, sampler(full.dst, 1))
-
-
-def _cache_stream():
-    """``tests/test_cache_distributed.py``'s stream: 2,000 edges with 8-dim
-    edge and 6-dim node features."""
-    return data.make_synthetic_dataset(num_src=100, num_dst=30,
-                                       num_edges=2000, dim_edge=8,
-                                       dim_node=6, seed=0)
-
-
-def _flat(tree, prefix=()):
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(_flat(v, prefix + (k,)))
-        else:
-            out[prefix + (k,)] = np.asarray(v)
-    return out
-
-
-def _memory(mem):
-    return {k: np.array(getattr(mem, k)) for k in MEMORY}
-
-
-# ---- the ranks' work (imports no jax) ---------------------------------
-
-def _store(full, nf, ef):
-    pg = PartitionedDynamicGraph(4, initial_pool_size=1024,
-                                 minimum_block_size=4)
-    _, store = dispatch_full_dataset(full, None, get_partitioner("hash", 4),
-                                     pg, node_feats=nf, edge_feats=ef,
-                                     undirected=True)
-    return pg.device_graph("cpu"), store
-
-
-def _mem_run(name, dedup, sharded):
-    """4 f32 train steps of ``name`` through ``PartitionedTrainer`` on
-    sharded or replicated memory: per step the loss, logits, parameters
-    and the memory dedup's unique count; then the whole memory."""
-    _, _, _, full, nf, ef = _stream()
-    dg, store = _store(full, nf if name == "tgn" else None, ef)
-    model = DGNN(**MODELS[name], device="cpu")
-    trainer = PartitionedTrainer(model, fanouts=[4], device="cpu",
-                                 dedup_factor=dedup,
-                                 apan_table=name == "apan_table")
-    state = trainer.init_state(full.max_node + 1)
-    assert (state.memory.shard is not None) == (trainer.dp.world_size > 1)
-    if not sharded:
-        state.memory = Trainer._init_memory(trainer, full.max_node + 1)
-    steps = []
-    for b in _batches(data.get_batches, data.DstRandEdgeSampler, full):
-        state, loss, pos, neg = trainer.train_step(
-            state, dg, store.edge_table, b, node_feats=store.node_table)
-        steps.append((float(loss), pos.numpy(), neg.numpy(),
-                      _flat(flax_param_tree(model)), state.dedup_n_uniq))
-    return {"steps": steps, "memory": _memory(unshard_memory(state.memory)),
-            "local_rows": state.memory.node_memory.shape[0]}
-
-
-def _branches(ctx, name):
-    """TGN with sharded node features and sharded memory (or APAN on its
-    K/V table over sharded memory, whose backward pass makes one more
-    exchange) on the memory dedup at factor 0.1, on a global batch of
-    512 whose first half (rank 0's) repeats one (src, dst, ts) row, so
-    its unique pairs fit the cap, and whose second half (rank 1's) holds
-    256 distinct edges, whose roots alone overflow it; a train step, then
-    an eval step, and the same on the per-instance path."""
-    _, _, _, full, nf, ef = _stream()
-    dg, store = _store(full, nf, ef)
-    neg = data.DstRandEdgeSampler(full.dst, 3)
-    edges = full[100:356]
-    src = np.concatenate([np.full(256, 3), edges.src])
-    dst = np.concatenate([np.full(256, 65), edges.dst])
-    ts = np.concatenate([np.full(256, full.time[300]), edges.time])
-    eid = np.concatenate([np.full(256, 300), edges.eid])
-    batch = data._pad_batch(src, dst, neg.sample(512),
-                            ts.astype(np.float32), eid, 512)
-    out = {}
-    nodes = store.node_table if name == "tgn" else None
-    for path, factor in (("dedup", 0.1), ("per_instance", None)):
-        model = DGNN(**MODELS[name], device="cpu")
-        trainer = PartitionedTrainer(model, fanouts=[4], device="cpu",
-                                     dedup_factor=factor)
-        state = trainer.init_state(full.max_node + 1)
-        state, loss, _, _ = trainer.train_step(
-            state, dg, store.edge_table, batch, node_feats=nodes)
-        n_uniq = state.dedup_n_uniq
-        _, eloss, pos, _ = trainer.eval_step(
-            state, dg, store.edge_table, batch, node_feats=nodes)
-        out[path] = {"losses": [float(loss), float(eloss)],
-                     "n_uniq": n_uniq, "pos": pos.numpy(),
-                     "cap": trainer._dedup_cap(256 * 3 * 5)
-                     if factor else None}
-    return out
-
-
-def _cache_graph():
-    _, _, _, full, nf, ef = _cache_stream()
-    g = DynamicGraph(initial_pool_size=4096, maximum_pool_size=1 << 22,
-                     mem_resource_type="hbm", minimum_block_size=8)
-    g.add_edges(full.src, full.dst, full.time, full.eid, add_reverse=True)
-    return g
-
-
-def _cache_runs():
-    """LRU and FIFO at ratio 0.2 over ``ShardedTable`` masters: 5 batches'
-    features and hit ratios; then zero capacity on one batch."""
-    train, _, _, full, nf, ef = _cache_stream()
-    g = _cache_graph()
-    sampler = TemporalSampler(g, [5], device="cpu")
-    kw = dict(num_nodes=g.max_vertex_id() + 1, num_edges=len(full),
-              device="cpu")
-    out = {}
-    for cls in (LRUCache, FIFOCache):
-        c = cls(0.2, 0.2, node_feats=ShardedTable(nf),
-                edge_feats=ShardedTable(ef), transfer_dtype="bfloat16",
-                **kw)
-        assert c.node_cache.distributed and c.edge_cache.distributed
-        c.init_cache()
-        got = []
-        neg = data.DstRandEdgeSampler(train.dst, seed=1)
-        for i, batch in enumerate(data.get_batches(train, 100, neg)):
-            if i >= CACHE_BATCHES:
-                break
-            mfgs = sampler.sample(batch.target_nodes, batch.ts)
-            nfs, efs = c.fetch_feature(mfgs, batch.eids)
-            got.append((nfs[0].numpy(), efs[0][0].numpy(),
-                        c.target_edge_features.numpy(), c.cache_node_ratio,
-                        c.cache_edge_ratio))
-        out[cls.__name__] = got
-    c = LRUCache(0, 0, node_feats=ShardedTable(nf),
-                 edge_feats=ShardedTable(ef), **kw)
-    c.init_cache()
-    batch = next(data.get_batches(train, 64,
-                                  data.DstRandEdgeSampler(train.dst, seed=1)))
-    mfgs = TemporalSampler(g, [4], device="cpu").sample(batch.target_nodes,
-                                                        batch.ts)
-    nfs, _ = c.fetch_feature(mfgs, batch.eids)
-    out["zero"] = (nfs[0].numpy(), mfgs[0][0].all_nodes().numpy(),
-                   mfgs[0][0].all_mask().numpy())
-    return out
-
-
-def _memory_ops(ctx):
-    """``shard_memory_state`` of a filled 3-slot state of 11 nodes, its
-    backup and restore, reset, and resize to 14 nodes."""
-    full = memory_lib.init_memory(11, 4, 2, "cpu", 3)
-    gen = torch.Generator().manual_seed(0)
-    for t in full.tensors().values():
-        t.copy_(torch.randint(1, 9, t.shape, generator=gen).to(t.dtype))
-    st = shard_memory_state(full)
-    bk = memory_lib.backup_memory(st)
-    back = memory_lib.restore_memory(bk, "cpu", st.shard)
-    grown = memory_lib.resize_memory(st, 14)
-    out = {"local": _memory(st), "lo": st.shard.lo, "num_nodes":
-           st.num_nodes, "restored": _memory(unshard_memory(back)),
-           "grown": _memory(unshard_memory(grown)),
-           "grown_rows": grown.node_memory.shape[0],
-           "full": _memory(full)}
-    memory_lib.reset_memory(st)
-    out["reset_sum"] = float(sum(t.float().abs().sum()
-                                 for t in st.tensors().values()))
-    return out
-
-
-def _sharded_feat(ctx, data_dir):
-    table, total = data.load_sharded_node_feat("MAGLIKE", device="cpu",
-                                               data_dir=data_dir)
-    return {"local": table.local.numpy(), "total": total,
-            "rows_per_rank": table.rows_per_rank,
-            "pulled": table.pull(torch.arange(total)).numpy()}
-
-
-def _mp_cache(ctx, lr):
-    from gnnflow_tpu_torch.scripts import \
-        offline_edge_prediction_multiprocess as mp
-    return mp.main(MP_CACHE + ["--num-processes", str(ctx.world_size),
-                               "--process-id", str(ctx.rank), "--lr",
-                               repr(lr)])
-
-
-def _ranks(ctx, out_dir):
-    """Each rank's part of the module."""
-    torch.set_num_threads(1)
-    out = {"mem": {(n, d, s): _mem_run(n, d, s)
-                   for n in MODELS for d in (None, 0.9)
-                   for s in (True, False)},
-           "branches": {n: _branches(ctx, n) for n in ("tgn",
-                                                       "apan_table")},
-           "cache": _cache_runs(),
-           "memory_ops": _memory_ops(ctx),
-           "sharded_feat": _sharded_feat(ctx, out_dir),
-           "mp_cache": _mp_cache(ctx, MP_LR)}
-    with open(os.path.join(out_dir, f"rank{ctx.rank}.pkl"), "wb") as f:
-        pickle.dump(out, f)
-
-
-def _one_rank(ctx, out_dir):
-    torch.set_num_threads(1)
-    out = _mp_cache(ctx, MP_LR * math.sqrt(2))
-    with open(os.path.join(out_dir, "one_rank.pkl"), "wb") as f:
-        pickle.dump(out, f)
+from torch_fixtures import one_cpu_thread  # noqa: F401
+from torch_fixtures import _flat
+from torch_parity import _assert_tables_equal, jax_state
+from torch_ranks import (CACHE_BATCHES, MEM_MODELS, MEM_TGN, _cache_stream,
+                         _mem_batches, _mem_stream, _memory, _memory_one_rank,
+                         _memory_ranks)
 
 
 # ---- the JAX references -------------------------------------------------
@@ -316,11 +77,10 @@ def _jax_mem(name):
     from gnnflow_tpu.dynamic_graph import DynamicGraph as JGraph
     from gnnflow_tpu.models.dgnn import DGNN as JDGNN
     from gnnflow_tpu.train import Trainer as JTrainer
-    from tests.test_torch_slice import jax_state
-    _, _, _, full, nf, ef = _stream()
+    _, _, _, full, nf, ef = _mem_stream()
     g = JGraph(initial_pool_size=1024, minimum_block_size=4)
     g.add_edges(full.src, full.dst, full.time, full.eid, add_reverse=True)
-    cfg = MODELS[name]
+    cfg = MEM_MODELS[name]
     trainer = JTrainer(JDGNN(**cfg), fanouts=[4], sample_strategy="recent",
                        dedup_factor=None, gru_table=False, lr=1e-4,
                        auto_calibrate=False)
@@ -328,7 +88,7 @@ def _jax_mem(name):
     dg, jef = g.device_graph(), jnp.asarray(ef)
     jnf = jnp.asarray(nf) if name == "tgn" else None
     steps = []
-    for b in _batches(jdata.get_batches, jdata.DstRandEdgeSampler, full):
+    for b in _mem_batches(jdata.get_batches, jdata.DstRandEdgeSampler, full):
         state, loss, pos, neg = trainer.train_step(state, dg, jnf, jef, b)
         steps.append((float(loss), np.asarray(pos), np.asarray(neg),
                       _flat(jax.tree.map(np.asarray, state.params))))
@@ -396,10 +156,10 @@ def refs(tmp_path_factory):
     teardown."""
     out_dir = str(tmp_path_factory.mktemp("ranks"))
     parts = _write_parts(os.path.join(out_dir, "MAGLIKE"))
-    procs = [spawn(_ranks, 2, "cpu", out_dir,
+    procs = [spawn(_memory_ranks, 2, "cpu", out_dir,
                    init_method="file://" + os.path.join(out_dir, "rdv"),
                    join=False),
-             spawn(_one_rank, 1, "cpu", out_dir,
+             spawn(_memory_one_rank, 1, "cpu", out_dir,
                    init_method="file://" + os.path.join(out_dir, "rdv1"),
                    join=False)]
     state = {"out_dir": out_dir, "procs": procs, "parts": parts}
@@ -433,11 +193,6 @@ def ranks(refs):
 
 # ---- loaders --------------------------------------------------------------
 
-def _tables_equal(a, b):
-    for f in ("src", "dst", "time", "eid"):
-        assert np.array_equal(getattr(a, f), getattr(b, f)), f
-
-
 @pytest.mark.parametrize("index", [True, False], ids=["index", "no_index"])
 def test_load_dataset_in_chunks_matches_jax(tmp_path, index):
     import pandas as pd
@@ -453,7 +208,7 @@ def test_load_dataset_in_chunks_matches_jax(tmp_path, index):
     assert [len(t) for t, _ in got] == [25, 25, 25, 25, 3]
     assert len(got) == len(want)
     for (t, r), (jt, jr) in zip(got, want):
-        _tables_equal(t, jt)
+        _assert_tables_equal(t, jt)
         assert np.array_equal(r, jr)
     assert np.array_equal(np.concatenate([t.eid for t, _ in got]),
                           np.arange(103))
@@ -479,7 +234,7 @@ def test_load_partitioned_dataset_matches_jax(tmp_path):
         assert (got[0] is None) == (want[0] is None) == ptd
         for t, jt in zip(got, want):
             if t is not None:
-                _tables_equal(t, jt)
+                _assert_tables_equal(t, jt)
     with pytest.raises(ValueError):
         data.load_partitioned_dataset("FAKE", str(tmp_path), 5, 2)
 
@@ -664,9 +419,8 @@ def test_bf16_storage_matches_jax():
     from gnnflow_tpu.dynamic_graph import DynamicGraph as JGraph
     from gnnflow_tpu.models.dgnn import DGNN as JDGNN
     from gnnflow_tpu.train import Trainer as JTrainer
-    from tests.test_torch_slice import jax_state
-    cfg = dict(TGN, dim_node=0)
-    _, _, _, full, _, ef = _stream()
+    cfg = dict(MEM_TGN, dim_node=0)
+    _, _, _, full, _, ef = _mem_stream()
     jg = JGraph(initial_pool_size=1024, minimum_block_size=4)
     jg.add_edges(full.src, full.dst, full.time, full.eid, add_reverse=True)
     jtrainer = JTrainer(JDGNN(**cfg), fanouts=[4], sample_strategy="recent",
@@ -686,8 +440,8 @@ def test_bf16_storage_matches_jax():
         == fstate.memory.node_memory.nbytes
     jdg, jef, tef = jg.device_graph(), jnp.asarray(ef), torch.from_numpy(ef)
     for b, jb in zip(
-            _batches(data.get_batches, data.DstRandEdgeSampler, full),
-            _batches(jdata.get_batches, jdata.DstRandEdgeSampler, full)):
+            _mem_batches(data.get_batches, data.DstRandEdgeSampler, full),
+            _mem_batches(jdata.get_batches, jdata.DstRandEdgeSampler, full)):
         jstate, jloss, _, _ = jtrainer.train_step(jstate, jdg, None, jef, jb)
         state, loss, _, _ = trainer.train_step(state, g.device_graph("cpu"),
                                                tef, b)

@@ -55,18 +55,11 @@ from gnnflow_tpu_torch.train import (Trainer, compact_factor_for,
                                      fetch_features, link_pred_loss,
                                      tier_ladder)
 from gnnflow_tpu_torch.utils.checkpoint import load_checkpoint
-from tests.test_torch_kernels import one_cpu_thread  # noqa: F401
-from tests.test_torch_sampling import _roots, graphs  # noqa: F401
-from tests.test_torch_tgat import (_assert_mfgs_identical, _jax_graph,
-                                   _port_graph, _stream)
-from tests.test_torch_slice import jax_state
-from tests.test_torch_train import _flat
+from torch_fixtures import graphs, one_cpu_thread  # noqa: F401
+from torch_fixtures import _assert_mfgs_identical, _flat, _roots
+from torch_parity import (DYSAT_CFG, DYSAT_FANOUTS, DYSAT_WIN, _hop_stream,
+                          _jax_graph, _port_graph, jax_state)
 
-CFG = dict(dim_node=0, dim_edge=12, dim_time=0, dim_embed=32, num_layers=2,
-           num_snapshots=3, att_head=2, dropout=0.0, att_dropout=0.0,
-           use_memory=False)
-WIN = dict(num_snapshots=3, snapshot_time_window=200.0, prop_time=True)
-FANOUTS = (5, 5)
 B = 240
 STEPS = 3
 
@@ -76,16 +69,16 @@ def jax_run():
     """The JAX padded DySAT trainer's initial parameters and its losses
     and parameters after each of STEPS train steps (recent sampling,
     chronological batches)."""
-    train, _, _, full, _, ef = _stream()
+    train, _, _, full, _, ef = _hop_stream()
     jg = _jax_graph(full)
     jdg = jg.device_graph()
-    trainer = JTrainer(JDGNN(**CFG), fanouts=list(FANOUTS),
+    trainer = JTrainer(JDGNN(**DYSAT_CFG), fanouts=list(DYSAT_FANOUTS),
                        sample_strategy="recent", lr=1e-4,
                        compact_factor=None, model_compact=False,
-                       layer_dedup=None, **WIN)
+                       layer_dedup=None, **DYSAT_WIN)
     assert trainer._calibrated            # nothing left to calibrate
     jef = jnp.asarray(ef)
-    state = jax_state(trainer, DGNN(**CFG, device="cpu"),
+    state = jax_state(trainer, DGNN(**DYSAT_CFG, device="cpu"),
                       jg.max_vertex_id() + 1)
     params0 = jax.tree.map(np.asarray, state.params)
     state0 = jax.tree.map(jnp.array, state)
@@ -105,11 +98,12 @@ def _port_run(params0, steps=STEPS, **knobs):
     steps of the batches ``jax_run`` takes: losses, parameter trees, and
     per step the boundaries on the snapshot dedup and on the block
     compaction."""
-    train, _, _, full, _, ef = _stream()
-    model = DGNN(**CFG, device="cpu")
+    train, _, _, full, _, ef = _hop_stream()
+    model = DGNN(**DYSAT_CFG, device="cpu")
     load_flax_params(model, params0)
-    trainer = Trainer(model, fanouts=list(FANOUTS), sample_strategy="recent",
-                      lr=1e-4, device="cpu", **WIN, **knobs)
+    trainer = Trainer(model, fanouts=list(DYSAT_FANOUTS),
+                      sample_strategy="recent", lr=1e-4, device="cpu",
+                      **DYSAT_WIN, **knobs)
     g = _port_graph(full)
     dg = g.device_graph("cpu")
     state = trainer.init_state(g.max_vertex_id() + 1)
@@ -353,7 +347,7 @@ def test_attention_without_time_matches_flax(dim_node):
     """``l0h*`` (no node input: Q is ones, no ``w_q``) and ``l1h*`` (node
     input: ``w_q([h_dst])``, ``w_out([agg, h_dst])``) without time
     encoding."""
-    train, _, _, full, _, ef = _stream()
+    train, _, _, full, _, ef = _hop_stream()
     g = _port_graph(full)
     roots = np.concatenate([train.src[:300], train.dst[:300]])
     ts = np.tile(train.time[:300], 2).astype(np.float32) + 700.0
@@ -396,23 +390,23 @@ def test_dysat_logits_and_gradients_match_jax(jax_run):
     """One training forward and backward at dropout 0 on the first batch,
     padded: MFGs, logits, loss and every parameter's gradient, the
     combiner's included."""
-    train, _, _, full, _, ef = _stream()
+    train, _, _, full, _, ef = _hop_stream()
     jtrainer, jdg, jef = jax_run["trainer"], jax_run["dg"], jax_run["ef"]
     b = next(iter(data.get_batches(
         train, B, data.DstRandEdgeSampler(train.dst, seed=1))))
     jmfgs = jtrainer._sample(jdg, jnp.asarray(b.target_nodes, jnp.int32),
                              jnp.asarray(b.ts, jnp.float32),
                              jax.random.PRNGKey(1))
-    jnfs, jefs = jfetch_features(jmfgs, None, jef, None, CFG["dim_edge"])
+    jnfs, jefs = jfetch_features(jmfgs, None, jef, None, DYSAT_CFG["dim_edge"])
     run = jax.jit(jtrainer._run_model, static_argnums=(5,))
     jloss, jpos, jneg, _, jgrads = run(jax_run["state0"], jmfgs, jefs,
                                        jax.random.PRNGKey(2), jvalid_mask(b),
                                        True, None, jnfs)
 
-    model = DGNN(**CFG, device="cpu")
+    model = DGNN(**DYSAT_CFG, device="cpu")
     load_flax_params(model, jax_run["params0"])
-    trainer = Trainer(model, fanouts=list(FANOUTS), layer_dedup=None,
-                      compact_factor=None, device="cpu", **WIN)
+    trainer = Trainer(model, fanouts=list(DYSAT_FANOUTS), layer_dedup=None,
+                      compact_factor=None, device="cpu", **DYSAT_WIN)
     g = _port_graph(full)
     st = trainer.init_state(g.max_vertex_id() + 1)
     mfgs, efs, _, _, valid, exps = trainer._inputs(
@@ -431,7 +425,7 @@ def test_dysat_logits_and_gradients_match_jax(jax_run):
     loss = link_pred_loss(pos, neg, valid)
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
-    grads = DGNN(**CFG, device="cpu")        # a carrier for the gradients
+    grads = DGNN(**DYSAT_CFG, device="cpu")  # a carrier for the gradients
     with torch.no_grad():
         for gp, p in zip(grads.parameters(), model.parameters()):
             gp.copy_(p.grad)
@@ -503,12 +497,12 @@ def test_padded_path_compacts_its_sampling(jax_run):
 def test_calibration_matches_jax(window, compact, ladder):
     """The first-step calibration of both trainers (recent sampling) on
     the same batch: compaction factor, ladder and deep cap."""
-    train, _, _, full, _, _ = _stream()
-    win = {**WIN, "snapshot_time_window": window}
-    jtrainer = JTrainer(JDGNN(**CFG), fanouts=list(FANOUTS),
+    train, _, _, full, _, _ = _hop_stream()
+    win = {**DYSAT_WIN, "snapshot_time_window": window}
+    jtrainer = JTrainer(JDGNN(**DYSAT_CFG), fanouts=list(DYSAT_FANOUTS),
                         sample_strategy="recent", **win)
-    trainer = Trainer(DGNN(**CFG, device="cpu"), fanouts=list(FANOUTS),
-                      device="cpu", **win)
+    trainer = Trainer(DGNN(**DYSAT_CFG, device="cpu"),
+                      fanouts=list(DYSAT_FANOUTS), device="cpu", **win)
     assert trainer.compact_factor == jtrainer.compact_factor == 0.25
     assert trainer.model_compact and jtrainer.model_compact
     assert not trainer._calibrated and not jtrainer._calibrated
@@ -600,7 +594,8 @@ def test_build_model_dysat():
     assert trainer.model_compact and trainer.compact_factor == 0.25
     assert trainer._layer_dedup_ok() and not trainer._calibrated
     with pytest.raises(ValueError, match="snapshots"):
-        DGNN(**{**CFG, "use_memory": True, "dim_memory": 8}, device="cpu")
+        DGNN(**{**DYSAT_CFG, "use_memory": True, "dim_memory": 8},
+             device="cpu")
 
 
 def test_weights_round_trip_dysat(jax_run):
@@ -608,7 +603,7 @@ def test_weights_round_trip_dysat(jax_run):
     assert ("l0h1", "w_q", "kernel") not in want
     assert ("l1h1", "w_q", "kernel") in want
     assert not any("TimeEncode_0" in k for k in want)
-    model = DGNN(**CFG, device="cpu")
+    model = DGNN(**DYSAT_CFG, device="cpu")
     load_flax_params(model, jax_run["params0"])
     got = _flat(flax_param_tree(model))
     assert got.keys() == want.keys()

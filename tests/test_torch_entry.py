@@ -24,8 +24,9 @@ from gnnflow_tpu_torch.train import Trainer
 from gnnflow_tpu_torch.utils import EarlyStopMonitor
 from gnnflow_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                 save_checkpoint)
-from tests.test_torch_train import CFG
-from tests.test_torch_kernels import one_cpu_thread  # noqa: F401
+from torch_fixtures import one_cpu_thread  # noqa: F401
+from torch_fixtures import CFG
+from torch_parity import _assert_tables_equal
 
 
 @pytest.mark.parametrize("higher_better", [True, False])
@@ -77,12 +78,6 @@ def test_checkpoint_round_trip(tmp_path):
     for name in ("node_memory", "node_memory_ts", "mailbox", "mailbox_ts"):
         assert torch.equal(getattr(back, name), getattr(mem, name)), name
     assert not os.path.exists(path + ".tmp")
-
-
-def _assert_tables_equal(a, b):
-    for field in ("src", "dst", "time", "eid"):
-        x, y = getattr(a, field), getattr(b, field)
-        assert x.dtype == y.dtype and x.tobytes() == y.tobytes(), field
 
 
 def test_load_dataset_matches_jax(tmp_path):

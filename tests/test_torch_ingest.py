@@ -14,7 +14,7 @@ from hypothesis import strategies as st
 from gnnflow_tpu import csrc as jcsrc
 from gnnflow_tpu_torch.dynamic_graph import DynamicGraph
 from gnnflow_tpu_torch.ops import _build, ingest
-from tests.test_torch_kernels import one_cpu_thread  # noqa: F401
+from torch_fixtures import one_cpu_thread  # noqa: F401
 
 
 def _sort_case(name):

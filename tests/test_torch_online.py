@@ -46,14 +46,14 @@ from gnnflow_tpu_torch.scripts import online_edge_prediction as online
 from gnnflow_tpu_torch.train import Trainer
 from gnnflow_tpu_torch.utils import average_precision_score
 from gnnflow_tpu_torch.utils.checkpoint import load_checkpoint
-from tests import test_torch_dysat as dysat
-from tests import test_torch_static as static
-from tests.test_torch_apan import _assert_memory, _filled_memory, _jax_memory
-from tests.test_torch_entry import _assert_tables_equal
-from tests.test_torch_kernels import one_cpu_thread  # noqa: F401
-from tests.test_torch_tgat import _assert_mfgs_identical
-from tests.test_torch_train import CFG as TGN_CFG
-from tests.test_torch_train import _assert_memory_equal
+from torch_fixtures import one_cpu_thread  # noqa: F401
+from torch_fixtures import CFG, _assert_mfgs_identical
+from torch_parity import (DYSAT_CFG, DYSAT_FANOUTS, DYSAT_WIN, STATIC_FANOUTS,
+                          _assert_memory, _assert_memory_equal,
+                          _assert_stores_equal, _assert_tables_equal,
+                          _filled_memory, _hop_stream, _jax_graph, _jax_memory,
+                          _port_graph, _static_batch, _static_graphs,
+                          _static_models, _static_stream)
 
 B = 64
 
@@ -121,23 +121,6 @@ def test_written_dataset_reads_across(tmp_path, writer):
 
 
 # ---- (b): eviction, spill, restore, compaction ----------------------------
-
-def _assert_stores_equal(g, jg):
-    dg, jdg = g.device_graph("cpu"), jg.device_graph()
-    off, ln = dg.row_off.numpy(), dg.row_len.numpy()
-    assert np.array_equal(off, np.asarray(jdg.row_off))
-    assert np.array_equal(ln, np.asarray(jdg.row_len))
-    assert np.array_equal(g._row_cap, jg._row_cap)
-    assert g._pool_used == jg._pool_used
-    assert dg.search_iters == jdg.search_iters
-    live = np.concatenate([np.arange(o, o + n) for o, n in zip(off, ln)
-                           if n > 0] or [np.zeros(0, np.int64)])
-    for name in ("e_dst", "e_ts", "e_eid"):
-        a = getattr(dg, name).numpy()[live]
-        b = np.asarray(getattr(jdg, name))[live]
-        assert a.tobytes() == b.astype(a.dtype).tobytes(), name
-    return dg, jdg
-
 
 def test_eviction_matches_jax(tmp_path):
     """add → evict (spilled) → add (evicted vertices fill again and
@@ -275,9 +258,9 @@ def _tgn_sides(full):
     for x in (g, jg):
         x.add_edges(full.src, full.dst, full.time, full.eid,
                     add_reverse=True)
-    jtrainer = JTrainer(JDGNN(**TGN_CFG), fanouts=[4], dedup_factor=None,
+    jtrainer = JTrainer(JDGNN(**CFG), fanouts=[4], dedup_factor=None,
                         gru_table=False)
-    trainer = Trainer(DGNN(**TGN_CFG, device="cpu"), fanouts=[4],
+    trainer = Trainer(DGNN(**CFG, device="cpu"), fanouts=[4],
                       dedup_factor=None, device="cpu")
     state = trainer.init_state(int(full.max_node) + 1)
     return g, jg, trainer, state, jtrainer, \
@@ -290,7 +273,7 @@ def _embed_tgn():
     # memory and mails as a stream would leave them, the same on both sides
     state.memory = _filled_memory(np.random.RandomState(7),
                                   state.memory.num_nodes, 1,
-                                  TGN_CFG["dim_memory"], TGN_CFG["dim_edge"])
+                                  CFG["dim_memory"], CFG["dim_edge"])
     jstate = _jax_state(jtrainer, trainer.model, state.memory)
     b = list(data.get_batches(full[:600], B,
                               data.DstRandEdgeSampler(full.dst, 1)))[7]
@@ -304,18 +287,18 @@ def _embed_tgn():
 
 
 def _embed_dysat():
-    train, _, _, full, _, ef = dysat._stream()
-    jg, g = dysat._jax_graph(full), dysat._port_graph(full)
-    jtrainer = JTrainer(JDGNN(**dysat.CFG), fanouts=list(dysat.FANOUTS),
+    train, _, _, full, _, ef = _hop_stream()
+    jg, g = _jax_graph(full), _port_graph(full)
+    jtrainer = JTrainer(JDGNN(**DYSAT_CFG), fanouts=list(DYSAT_FANOUTS),
                         sample_strategy="recent", compact_factor=None,
-                        model_compact=False, layer_dedup=None, **dysat.WIN)
+                        model_compact=False, layer_dedup=None, **DYSAT_WIN)
     jdg = jg.device_graph()
-    model = DGNN(**dysat.CFG, device="cpu")
+    model = DGNN(**DYSAT_CFG, device="cpu")
     jstate = _jax_state(jtrainer, model)
-    trainer = Trainer(model, fanouts=list(dysat.FANOUTS),
+    trainer = Trainer(model, fanouts=list(DYSAT_FANOUTS),
                       sample_strategy="recent", compact_factor=None,
                       model_compact=False, layer_dedup=None, device="cpu",
-                      **dysat.WIN)
+                      **DYSAT_WIN)
     b = list(data.get_batches(train, B,
                               data.DstRandEdgeSampler(train.dst, 1)))[20]
     got = trainer.embed_step(trainer.init_state(g.max_vertex_id() + 1),
@@ -325,18 +308,18 @@ def _embed_dysat():
 
 
 def _embed_graphsage():
-    train, _, _, full, nf, ef = static._stream()
-    g, jg = static._graphs(full)
-    model, jmodel = static._models("sage")
-    jtrainer = JTrainer(jmodel, fanouts=list(static.FANOUTS),
+    train, _, _, full, nf, ef = _static_stream()
+    g, jg = _static_graphs(full)
+    model, jmodel = _static_models("sage")
+    jtrainer = JTrainer(jmodel, fanouts=list(STATIC_FANOUTS),
                         sample_strategy="recent", is_static=True,
                         layer_dedup=None)
     jdg = jg.device_graph()
     jstate = _jax_state(jtrainer, model)
-    trainer = Trainer(model, fanouts=list(static.FANOUTS),
+    trainer = Trainer(model, fanouts=list(STATIC_FANOUTS),
                       sample_strategy="recent", is_static=True,
                       layer_dedup=None, device="cpu")
-    b = static._batch(train, 2)
+    b = _static_batch(train, 2)
     got = trainer.embed_step(trainer.init_state(g.max_vertex_id() + 1),
                              g.device_graph("cpu"), torch.from_numpy(ef), b,
                              node_feats=torch.from_numpy(nf))

@@ -2,6 +2,7 @@
 package (config, metrics, synthetic data, batches, negative sampler and
 the dynamic graph's host mirror must be identical for the same seed)."""
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -16,7 +17,7 @@ from gnnflow_tpu.utils import metrics as jmetrics
 from gnnflow_tpu_torch import config, data
 from gnnflow_tpu_torch.dynamic_graph import DynamicGraph
 from gnnflow_tpu_torch.utils import metrics
-from tests.test_torch_kernels import one_cpu_thread  # noqa: F401
+from torch_fixtures import one_cpu_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "gnnflow_tpu_torch")
@@ -169,3 +170,77 @@ def test_entry_points_refuse_missing_cuda():
         pytest.skip("this check needs a process without CUDA")
     with pytest.raises(RuntimeError, match="CUDA"):
         DynamicGraph().device_graph()
+
+
+# ---- the root conftest.py: one JAX compilation cache a run ---------------
+
+CACHE_VARS = ("JAX_COMPILATION_CACHE_DIR", "JAX_COMPILATION_CACHE_MAX_SIZE")
+
+
+def _fresh_python(code, tmp_path, **env):
+    """The last line that ``code`` prints in a new interpreter at the
+    root of the repository, without this run's cache variables but those
+    in ``env``, its temporary files under ``tmp_path``."""
+    base = {k: v for k, v in os.environ.items() if k not in CACHE_VARS}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={**base, "TMPDIR": str(tmp_path), **env},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    return json.loads(out.stdout.splitlines()[-1])
+
+
+@pytest.mark.parametrize("preset", [False, True], ids=["unset", "set"])
+def test_root_conftest_gives_each_run_a_cache(tmp_path, preset):
+    """Importing the root ``conftest.py`` points JAX at a new, empty
+    directory, unless the variable names one already (an xdist worker's
+    or a child's, inherited from the run), and imports no JAX."""
+    given = str(tmp_path / "given")
+    code = ("import json, os, sys\n"
+            "import conftest\n"
+            "d = os.environ['JAX_COMPILATION_CACHE_DIR']\n"
+            "print(json.dumps([d, os.path.isdir(d) and os.listdir(d),\n"
+            "    int(os.environ['JAX_COMPILATION_CACHE_MAX_SIZE']),\n"
+            "    'jax' in sys.modules]))")
+    env = {"JAX_COMPILATION_CACHE_DIR": given} if preset else {}
+    d, listing, max_size, jax_imported = _fresh_python(code, tmp_path, **env)
+    if preset:
+        assert d == given and listing is False
+    else:
+        assert os.path.dirname(d) == str(tmp_path) and listing == []
+    assert max_size > 0 and not jax_imported
+
+
+def test_root_conftest_refuses_jax_imported_first(tmp_path):
+    code = ("import json\n"
+            "import jax\n"
+            "try:\n"
+            "    import conftest\n"
+            "except RuntimeError as e:\n"
+            "    print(json.dumps(str(e)))")
+    assert "JAX_COMPILATION_CACHE_DIR" in _fresh_python(code, tmp_path)
+
+
+def test_compilation_cache_serves_a_fresh_closure(tmp_path):
+    """One program compiled through two fresh ``jax.jit`` closures, as a
+    second ``Trainer`` compiles its steps: the first compile writes one
+    entry, the second loads it, and the outputs are the same bits."""
+    code = ("import json, os\n"
+            "import numpy as np\n"
+            "import jax, jax.numpy as jnp\n"
+            "hits = []\n"
+            "jax.monitoring.register_event_listener(\n"
+            "    lambda e, **_: hits.append(e) if e.endswith('cache_hits')\n"
+            "    else None)\n"
+            "x = np.random.RandomState(0).randn(64, 64).astype(np.float32)\n"
+            "outs = [np.asarray(jax.jit(lambda a: jnp.tanh(a @ a).sum(0))\n"
+            "                   (x)) for _ in range(2)]\n"
+            "d = os.environ['JAX_COMPILATION_CACHE_DIR']\n"
+            "print(json.dumps([[f for f in os.listdir(d)\n"
+            "                   if f.endswith('-cache')], len(hits),\n"
+            "                  outs[0].tobytes() == outs[1].tobytes()]))")
+    entries, hits, same = _fresh_python(
+        code, tmp_path, JAX_PLATFORMS="cpu",
+        JAX_COMPILATION_CACHE_DIR=str(tmp_path / "cache"),
+        JAX_COMPILATION_CACHE_MAX_SIZE=str(1 << 30),
+        JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS="0")
+    assert len(entries) == 1 and hits == 1 and same

@@ -11,14 +11,15 @@ training over two gloo ranks, against the JAX package.
   sampling they equal the port's single store on the same draws, and
   ``DistributedTemporalSampler`` equals ``TemporalSampler`` from one
   seed.
-- One spawn of two gloo ranks serves the module (``_ranks``: a
-  ``file://`` rendezvous under ``tmp_path``; each rank on one thread; the
-  rank functions import no jax, the references run in this process,
-  meanwhile).  It runs 3 f32 TGN train steps at dropout 0, the last batch
-  padded with all its valid rows on rank 0, data parallel
-  (``shard_trainer``) and on ``PartitionedTrainer`` (routed, P = 4 over
-  W = 2, memory sharded over the ranks and gathered for the check):
-  losses, logits, parameters and memory held to JAX's ``Trainer``
+- One spawn of two gloo ranks serves the module
+  (``torch_ranks._training_ranks``: a ``file://`` rendezvous under
+  ``tmp_path``; each rank on one thread; the rank functions import no
+  jax, the references run in this process, meanwhile).  It runs 3 f32
+  TGN train steps at dropout 0, the last batch padded with all its valid
+  rows on rank 0, data parallel (``shard_trainer``) and on
+  ``PartitionedTrainer`` (routed, P = 4 over W = 2, memory sharded over
+  the ranks and gathered for the check): losses, logits, parameters and
+  memory (with the mail cursors) held to JAX's ``Trainer``
   within 1e-5 (f32 sum order; timestamps exact); data parallel at three
   negatives per edge against the one-device trainer, within 1e-5; TGAT
   on the layer dedup
@@ -42,41 +43,17 @@ from gnnflow_tpu_torch.models.weights import flax_param_tree
 from gnnflow_tpu_torch.ops.sampling import sample_hops
 from gnnflow_tpu_torch.parallel import (DistributedTemporalSampler,
                                         PartitionedDynamicGraph,
-                                        PartitionedTrainer, ShardedTable,
                                         dispatch_full_dataset,
                                         get_partitioner, partition_metrics,
                                         sample_hops_partitioned,
-                                        sample_hops_routed, shard_trainer,
-                                        spawn, unshard_memory)
+                                        sample_hops_routed, spawn)
 from gnnflow_tpu_torch.temporal_sampler import TemporalSampler
-from gnnflow_tpu_torch.train import Trainer
+from torch_fixtures import one_cpu_thread  # noqa: F401
+from torch_fixtures import B, CFG, FIELDS, _flat, _stream
+from torch_ranks import _memory, _tgn_run, _train_batches, _training_ranks
 
-TGN = dict(dim_node=0, dim_edge=6, dim_time=8, dim_embed=8, num_layers=1,
-           num_snapshots=1, att_head=2, dropout=0.0, att_dropout=0.0,
-           use_memory=True, dim_memory=8)
-TGAT = dict(TGN, num_layers=2, use_memory=False, dim_memory=None)
-B = 64                     # batches of 64, 64 and 20 (all on rank 0)
-MFG_FIELDS = ("root_nids", "root_ts", "nbr_nids", "nbr_ts", "nbr_dts",
-              "nbr_eids", "nbr_mask")
 STRATEGIES = ["hash", "roundrobin", "edgecount", "timestampsum",
               "timestampavg", "fennel", "fennel_edge", "static"]
-
-
-@pytest.fixture(autouse=True)
-def one_cpu_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def _stream():
-    return data.make_synthetic_dataset(num_src=60, num_dst=20,
-                                       num_edges=600, dim_edge=6, seed=5)
-
-
-def _batches(get_batches, sampler, full, **kw):
-    return get_batches(full[:148], B, sampler(full.dst, 1), **kw)
 
 
 # ---- partitioners and rank splits (NumPy) ----------------------------
@@ -179,7 +156,7 @@ def _jax_routed():
             g, mesh, r, t, strategy="recent", overflow_fallback=False,
             **case))
         mfgs = fn(dg, jnp.asarray(roots, jnp.int32), jnp.asarray(ts))
-        out[name] = [[{f: np.asarray(getattr(m, f)) for f in MFG_FIELDS}
+        out[name] = [[{f: np.asarray(getattr(m, f)) for f in FIELDS}
                       for m in layer] for layer in mfgs]
     return out
 
@@ -195,7 +172,7 @@ def test_partitioned_sampling_matches_jax_routed(case, mode, refs):
     assert [len(x) for x in got] == [len(x) for x in want]
     for layer, wlayer in zip(got, want):
         for m, w in zip(layer, wlayer):
-            for f in MFG_FIELDS:
+            for f in FIELDS:
                 a = getattr(m, f).numpy()
                 assert np.array_equal(a, w[f].astype(a.dtype)), (case, f)
     masked = (roots < 0) | (roots >= 120)     # -1 and destinations
@@ -221,7 +198,7 @@ def test_partitioned_uniform_matches_single_store(case, mode):
     got = fn(_port_partitioned(full), r, t, draw=draws(), **kw)
     for layer, wlayer in zip(got, want):
         for m, w in zip(layer, wlayer):
-            for f in MFG_FIELDS:
+            for f in FIELDS:
                 assert torch.equal(getattr(m, f), getattr(w, f)), (case, f)
 
 
@@ -243,147 +220,11 @@ def test_distributed_sampler_matches_temporal_sampler(case, mode):
                                      mode=mode, **kw).sample(roots, ts)
     for layer, wlayer in zip(got, want):
         for m, w in zip(layer, wlayer):
-            for f in MFG_FIELDS:
+            for f in FIELDS:
                 assert torch.equal(getattr(m, f), getattr(w, f)), (case, f)
 
 
 # ---- two gloo ranks ----------------------------------------------------
-
-def _flat(tree, prefix=()):
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(_flat(v, prefix + (k,)))
-        else:
-            out[prefix + (k,)] = np.asarray(v)
-    return out
-
-
-def _memory(mem):
-    return {k: np.asarray(getattr(mem, k)) for k in
-            ("node_memory", "node_memory_ts", "mailbox", "mailbox_ts")}
-
-
-def _tgn_run(kind, ratio=1):
-    """3 TGN train steps on the rank's trainer (``"one"``: one device) at
-    ``ratio`` negatives per edge: per step the loss, the logits and the
-    parameters, then the memory."""
-    _, _, _, full, _, ef = _stream()
-    model = DGNN(**TGN, neg_sample_ratio=ratio, device="cpu")
-    if kind in ("dp", "one"):
-        g = DynamicGraph(initial_pool_size=1024, minimum_block_size=4)
-        g.add_edges(full.src, full.dst, full.time, full.eid,
-                    add_reverse=True)
-        trainer = Trainer(model, fanouts=[4], device="cpu",
-                          dedup_factor=None, neg_sample_ratio=ratio)
-        if kind == "dp":
-            shard_trainer(trainer)
-        dg, table = g.device_graph("cpu"), torch.from_numpy(ef)
-    else:
-        pg = PartitionedDynamicGraph(4, initial_pool_size=1024,
-                                     minimum_block_size=4)
-        _, store = dispatch_full_dataset(full, None,
-                                         get_partitioner("hash", 4), pg,
-                                         edge_feats=ef, undirected=True)
-        trainer = PartitionedTrainer(model, fanouts=[4], device="cpu")
-        dg, table = pg.device_graph("cpu"), store.edge_table
-    state = trainer.init_state(full.max_node + 1)
-    steps = []
-    for b in _batches(data.get_batches, data.DstRandEdgeSampler, full,
-                      neg_sample_ratio=ratio):
-        state, loss, pos, neg = trainer.train_step(state, dg, table, b)
-        steps.append((float(loss), pos.numpy(), neg.numpy(),
-                      _flat(flax_param_tree(model))))
-    # PartitionedTrainer shards memory over the ranks: the whole of it
-    return {"steps": steps, "memory": _memory(unshard_memory(state.memory))}
-
-
-def _tgat_tiers(ctx):
-    """TGAT on the routed layer dedup, tiers (0.1, 0.2), and padded: two
-    train steps and an eval step from one set of weights.  Global batch of
-    512: rank 0's half repeats one (src, dst, neg, ts) row, so its unique
-    pairs fit the lowest tier; rank 1's half is 256 distinct edges, whose
-    768 roots alone overflow the top tier's 768 of 3,840 rows."""
-    _, _, _, full, _, ef = _stream()
-    pg = PartitionedDynamicGraph(4, initial_pool_size=1024,
-                                 minimum_block_size=4)
-    _, store = dispatch_full_dataset(full, None, get_partitioner("hash", 4),
-                                     pg, edge_feats=ef, undirected=True)
-    dg = pg.device_graph("cpu")
-    neg = data.DstRandEdgeSampler(full.dst, 3)
-    edges = full[100:356]
-    src = np.concatenate([np.full(256, 3), edges.src])
-    dst = np.concatenate([np.full(256, 65), edges.dst])
-    ts = np.concatenate([np.full(256, full.time[300]), edges.time])
-    eid = np.concatenate([np.full(256, 300), edges.eid])
-    first = data._pad_batch(src, dst, neg.sample(512), ts.astype(np.float32),
-                            eid, 512)
-    batches = [first, next(data.get_batches(full[356:], 512, neg))]
-    out = {}
-    for name, ladder in (("dedup", (0.1, 0.2)), ("padded", None)):
-        model = DGNN(**TGAT, device="cpu")
-        trainer = PartitionedTrainer(model, fanouts=[4, 4], device="cpu",
-                                     layer_dedup=ladder)
-        state = trainer.init_state(full.max_node + 1)
-        losses, takes = [], []
-        for b in batches:
-            state, loss, _, _ = trainer.train_step(state, dg,
-                                                   store.edge_table, b)
-            losses.append(float(loss))
-            takes.append(state.last_take)
-        _, loss, pos, _ = trainer.eval_step(state, dg, store.edge_table,
-                                            batches[0])
-        out[name] = {"losses": losses + [float(loss)], "takes": takes,
-                     "tier_takes": state.tier_takes, "pos": pos.numpy()}
-    return out
-
-
-def _sharded_table(ctx):
-    """Pulls and pushes of a 10 x 3 table over the two ranks (rows 0-4
-    on rank 0): each rank's results, and the table after the pushes."""
-    table = np.arange(30, dtype=np.float32).reshape(10, 3)
-    st = ShardedTable(table)
-    ids = [[-1, 0, 9, 12, 4, 4, 7], []][ctx.rank]
-    pulled = st.pull(torch.tensor(ids, dtype=torch.long)).numpy()
-    push_ids = [[1, 7], [-1, 3, 8, 15]][ctx.rank]
-    rows = 100.0 * (1 + np.arange(len(push_ids) * 3, dtype=np.float32)
-                    .reshape(-1, 3)) + ctx.rank
-    st.push(torch.tensor(push_ids), torch.from_numpy(rows))
-    after = st.pull(torch.arange(10)).numpy()
-    return {"ids": ids, "pulled": pulled, "push_ids": push_ids,
-            "rows": rows, "after": after, "bytes": st.memory_usage(),
-            "local": st.local.numpy()}
-
-
-def _scripts(ctx, out_dir):
-    from gnnflow_tpu_torch.scripts import (
-        offline_edge_prediction, offline_edge_prediction_multiprocess,
-        offline_edge_prediction_partitioned)
-    common = ["--model", "TGAT", "--epoch", "1", "--synthetic-edges", "1500",
-              "--device", "cpu"]
-    ckpt = os.path.join(out_dir, "TGAT_torch.ckpt")
-    return {
-        "offline": offline_edge_prediction.main(
-            common + ["--data", "SYNTHETIC", "--synthetic-dim-edge", "16",
-                      "--num-devices", "2"], checkpoint_path=ckpt),
-        "partitioned": offline_edge_prediction_partitioned.main(
-            common + ["--num-devices", "2", "--num-partitions", "4"]),
-        "multiprocess": offline_edge_prediction_multiprocess.main(
-            common + ["--coordinator", "unused:0", "--num-processes", "2",
-                      "--process-id", str(ctx.rank), "--max-steps", "1"]),
-        "checkpoint": os.path.exists(ckpt)}
-
-
-def _ranks(ctx, out_dir):
-    """Each rank's part of the module (imports no jax)."""
-    torch.set_num_threads(1)
-    out = {"dp": _tgn_run("dp"), "partitioned": _tgn_run("partitioned"),
-           "dp_ratio3": _tgn_run("dp", ratio=3),
-           "tgat": _tgat_tiers(ctx), "table": _sharded_table(ctx),
-           "scripts": _scripts(ctx, out_dir)}
-    with open(os.path.join(out_dir, f"rank{ctx.rank}.pkl"), "wb") as f:
-        pickle.dump(out, f)
-
 
 def _jax_tgn():
     """JAX's TGN Trainer (plain GRU and attention) from the port model's
@@ -400,18 +241,18 @@ def _jax_tgn():
     _, _, _, full, _, ef = _stream()
     g = JGraph(initial_pool_size=1024, minimum_block_size=4)
     g.add_edges(full.src, full.dst, full.time, full.eid, add_reverse=True)
-    trainer = JTrainer(JDGNN(**TGN), fanouts=[4], sample_strategy="recent",
-                       dedup_factor=None, gru_table=False, lr=1e-4,
-                       auto_calibrate=False)
+    trainer = JTrainer(JDGNN(**CFG), fanouts=[4],
+                       sample_strategy="recent", dedup_factor=None,
+                       gru_table=False, lr=1e-4, auto_calibrate=False)
     params = jax.tree.map(jnp.asarray,
-                          flax_param_tree(DGNN(**TGN, device="cpu")))
+                          flax_param_tree(DGNN(**CFG, device="cpu")))
     state = JTrainState(
         params=params, opt_state=trainer.tx.init(params),
         memory=jmemory.init_memory(full.max_node + 1, 8, 6),
         key=jax.random.PRNGKey(0), step=jnp.zeros((), jnp.int32))
     dg, jef = g.device_graph(), jnp.asarray(ef)
     steps = []
-    for b in _batches(jdata.get_batches, jdata.DstRandEdgeSampler, full):
+    for b in _train_batches(jdata.get_batches, jdata.DstRandEdgeSampler, full):
         state, loss, pos, neg = trainer.train_step(state, dg, None, jef, b)
         steps.append((float(loss), np.asarray(pos), np.asarray(neg),
                       _flat(jax.tree.map(np.asarray, state.params))))
@@ -424,7 +265,7 @@ def refs(tmp_path_factory):
     they (and this module's tests up to ``ranks``) run: JAX's routed
     samples and its TGN run.  Stops ranks never joined at teardown."""
     out_dir = str(tmp_path_factory.mktemp("ranks"))
-    procs = spawn(_ranks, 2, "cpu", out_dir,
+    procs = spawn(_training_ranks, 2, "cpu", out_dir,
                   init_method="file://" + os.path.join(out_dir, "rdv"),
                   join=False)
     state = {"out_dir": out_dir, "procs": procs}

@@ -13,7 +13,6 @@ these cases run where JAX is not installed:
     python -m pytest --noconftest -q -m cuda tests/test_torch_sampling.py
 """
 import dataclasses
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -25,50 +24,8 @@ from gnnflow_tpu_torch.models.dgnn import DGNN
 from gnnflow_tpu_torch.ops import sampling
 from gnnflow_tpu_torch.train import Trainer
 from gnnflow_tpu_torch.utils import profiling
-from torch_fixtures import cuda, one_cpu_thread  # noqa: F401
-
-FIELDS = ("root_nids", "root_ts", "nbr_nids", "nbr_ts", "nbr_dts",
-          "nbr_eids", "nbr_mask")
-
-
-def _jax():
-    """The JAX side of the parity tests, imported only where they run."""
-    jnp = pytest.importorskip("jax.numpy")
-    from gnnflow_tpu.dynamic_graph import DynamicGraph as JGraph
-    from gnnflow_tpu.ops import sampling as jsampling
-    return SimpleNamespace(jnp=jnp, JGraph=JGraph, jsampling=jsampling)
-
-
-@pytest.fixture(scope="module")
-def graphs():
-    rng = np.random.RandomState(0)
-    n_edges = 24000
-    src = rng.randint(0, 60, n_edges)
-    src[:17000] = 3                      # hub: degree > 16384
-    src[17000:17300] = 8                 # degree > 128
-    dst = rng.randint(0, 200, n_edges)
-    dst[dst == 77] = 78                  # node 77: no history
-    ts = np.floor(rng.rand(n_edges) * 5000).astype(np.float32)  # ties
-    ours = DynamicGraph(initial_pool_size=1 << 16, minimum_block_size=8)
-    ref = _jax().JGraph(initial_pool_size=1 << 16, minimum_block_size=8)
-    for lo in range(0, n_edges, 6000):
-        sl = slice(lo, lo + 6000)
-        ours.add_edges(src[sl], dst[sl], ts[sl], add_reverse=True)
-        ref.add_edges(src[sl], dst[sl], ts[sl], add_reverse=True)
-    _, hub_ts, _ = ours.get_temporal_neighbors(3)
-    return ours, ref, float(hub_ts[len(hub_ts) // 2])
-
-
-def _roots(hub_edge_ts):
-    rng = np.random.RandomState(1)
-    roots = rng.randint(0, 250, 400).astype(np.int64)
-    ts = (rng.rand(400) * 5200).astype(np.float32)
-    roots[:6] = [-1, -1, 77, 3, 3, 8]    # padded, no history, hub, >128
-    ts[3] = hub_edge_ts                  # equal to a stored edge ts
-    ts[4] = 1e9                          # after every edge
-    roots[6:10] = 3
-    ts[6:10] = np.floor(ts[6:10])        # likely equal to edge ts too
-    return roots, ts
+from torch_fixtures import cuda, graphs, one_cpu_thread  # noqa: F401
+from torch_fixtures import FIELDS, _assert_mfgs_identical, _jax, _roots
 
 
 @pytest.mark.parametrize("fanout", [1, 4, 10, 50, 150])
@@ -83,12 +40,7 @@ def test_sample_layer_bit_identical(graphs, fanout):
     want = jsampling.sample_layer(jdg, jnp.asarray(roots, jnp.int32),
                                   jnp.asarray(ts), fanout=fanout,
                                   search_iters=jdg.search_iters)
-    for name in FIELDS:
-        a = getattr(got, name).numpy()
-        b = np.asarray(getattr(want, name))
-        assert np.array_equal(a, b.astype(a.dtype)), name
-        if a.dtype.kind == "f":
-            assert a.tobytes() == b.tobytes(), name
+    _assert_mfgs_identical(got, want)
     assert not got.nbr_mask[:3].any()    # padded and history-less roots
     assert got.nbr_mask[3:6].all()
 

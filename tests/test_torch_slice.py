@@ -12,12 +12,8 @@ import pytest
 import torch
 
 from gnnflow_tpu import data as jdata
-from gnnflow_tpu.dynamic_graph import DynamicGraph as JGraph
 from gnnflow_tpu.models.dgnn import DGNN as JDGNN
-from gnnflow_tpu.ops import attention_pallas
 from gnnflow_tpu.ops.segment import unique_keep_last_mask as jkeep_last
-from gnnflow_tpu.train import Trainer as JTrainer
-from gnnflow_tpu.train import TrainState as JTrainState
 from gnnflow_tpu_torch import data
 from gnnflow_tpu_torch.dynamic_graph import DynamicGraph
 from gnnflow_tpu_torch.models.dgnn import DGNN
@@ -25,68 +21,20 @@ from gnnflow_tpu_torch.models.weights import (flax_param_tree,
                                               load_flax_params)
 from gnnflow_tpu_torch.ops.segment import unique_keep_last_mask
 from gnnflow_tpu_torch.train import Trainer
-from tests.test_torch_kernels import one_cpu_thread  # noqa: F401
+from torch_fixtures import one_cpu_thread  # noqa: F401
+from torch_fixtures import B, _stream
+from torch_parity import interpret_attention  # noqa: F401
+from torch_parity import _filled_memory, _jax_memory, _jax_side
 
 CFG = dict(dim_node=0, dim_edge=6, dim_time=8, dim_embed=8, num_layers=1,
            num_snapshots=1, att_head=2, dropout=0.2, att_dropout=0.2,
            use_memory=True, dim_memory=8)
-B = 64
-
-
-@pytest.fixture
-def interpret_attention(monkeypatch):
-    # modules.py:404-410 calls the Pallas kernel without ``interpret``,
-    # which the CPU backend refuses; run it in interpret mode
-    orig = attention_pallas.neighborhood_attention
-    monkeypatch.setattr(attention_pallas, "neighborhood_attention",
-                        lambda q, k, v, m, interpret=False:
-                        orig(q, k, v, m, True))
-
-
-def _stream():
-    return data.make_synthetic_dataset(num_src=60, num_dst=20,
-                                       num_edges=600, dim_edge=6, seed=5)
-
-
-def jax_state(jtrainer, model, num_nodes):
-    """The JAX train state that ``init_state`` returns, but holding the
-    port ``model``'s weights (``flax_param_tree``): Adam's zero state,
-    zero memory for ``num_nodes`` nodes (models with memory), key 0,
-    step 0.  It compiles none of ``init_state``'s programs (~4 s a
-    model on the CPU)."""
-    params = jax.tree.map(jnp.asarray, flax_param_tree(model))
-    return JTrainState(
-        params=params, opt_state=jtrainer.tx.init(params),
-        memory=jtrainer._init_memory(num_nodes)
-        if jtrainer.model.use_memory else None,
-        key=jax.random.PRNGKey(0), step=jnp.zeros((), jnp.int32),
-        tier_takes=jnp.zeros((4,), jnp.int32)
-        if jtrainer._layer_dedup_ok() else None)
-
-
-def _jax_side(full, ef, cfg=CFG, model=None):
-    """The JAX TGN trainer, its state and store of ``full``; the state
-    from ``init_state``, or holding the port ``model``'s weights
-    (:func:`jax_state`)."""
-    g = JGraph(initial_pool_size=1024, minimum_block_size=4)
-    g.add_edges(full.src, full.dst, full.time, full.eid, add_reverse=True)
-    jmodel = JDGNN(**cfg, gru_impl="pallas", attention_impl="pallas")
-    trainer = JTrainer(jmodel, fanouts=[4], sample_strategy="recent",
-                       dedup_factor=None, gru_table=False)
-    dg = g.device_graph()
-    if model is not None:
-        return trainer, jax_state(trainer, model,
-                                  g.max_vertex_id() + 1), dg
-    state = trainer.init_state(jax.random.PRNGKey(0), dg, B, None,
-                               jnp.asarray(ef),
-                               num_nodes=g.max_vertex_id() + 1)
-    return trainer, state, dg
 
 
 def test_tgn_eval_matches_jax(interpret_attention):
     _, _, _, full, _, ef = _stream()
-    jtrainer, jstate, jdg = _jax_side(full, ef,
-                                      model=DGNN(**CFG, device="cpu"))
+    jtrainer, jstate, jdg = _jax_side(full, ef, CFG,
+                                      DGNN(**CFG, device="cpu"))
     jef = jnp.asarray(ef)
 
     g = DynamicGraph(initial_pool_size=1024, minimum_block_size=4)
@@ -150,7 +98,6 @@ def test_unported_configs_raise(kw):
     from gnnflow_tpu.models import memory as jmemory
     from gnnflow_tpu.train import fetch_features as jfetch
     from gnnflow_tpu_torch.models import memory as memory_lib
-    from tests.test_torch_apan import _filled_memory, _jax_memory
     cfg = {**CFG, **kw, "dropout": 0.0, "att_dropout": 0.0}
     _, _, _, full, _, ef = _stream()
     g = DynamicGraph(initial_pool_size=1024, minimum_block_size=4)

@@ -42,11 +42,8 @@ import torch
 
 from gnnflow_tpu import data as jdata
 from gnnflow_tpu.common import MFG as JMFG
-from gnnflow_tpu.dynamic_graph import DynamicGraph as JGraph
 from gnnflow_tpu.models import memory as jmemory
 from gnnflow_tpu.models.dgnn import DGNN as JDGNN
-from gnnflow_tpu.models.static import GAT as JGAT
-from gnnflow_tpu.models.static import SAGE as JSAGE
 from gnnflow_tpu.models.static import GATConv as JGATConv
 from gnnflow_tpu.models.static import SAGEConv as JSAGEConv
 from gnnflow_tpu.ops import sampling as jsampling
@@ -66,43 +63,14 @@ from gnnflow_tpu_torch.ops import sampling
 from gnnflow_tpu_torch.ops.dedup import dedup_instances
 from gnnflow_tpu_torch.train import (STATIC_SAMPLE_TS, Trainer,
                                      fetch_node_features, link_pred_loss)
-from tests.test_torch_apan import _filled_memory, _jax_memory, _mfgs
-from tests.test_torch_kernels import one_cpu_thread  # noqa: F401
-from tests.test_torch_tgat import _assert_mfgs_identical
-from tests.test_torch_slice import jax_state
-from tests.test_torch_train import _flat
+from torch_fixtures import one_cpu_thread  # noqa: F401
+from torch_fixtures import B, _assert_mfgs_identical, _flat, _stream
+from torch_parity import (DIM_NODE, EMBED, STATIC, STATIC_FANOUTS, _batches,
+                          _filled_memory, _jax_memory, _mfgs, _static_batch,
+                          _static_graphs, _static_models, _static_stream,
+                          jax_state)
 
-DIM_NODE, EMBED, FANOUTS, B, STEPS = 16, 16, (4, 3), 64, 4
-STATIC = {"sage": dict(aggregator="mean"), "gat": dict(attn_head=(2, 1))}
-
-
-def _stream():
-    return data.make_synthetic_dataset(num_src=200, num_dst=60,
-                                       num_edges=3000, dim_node=DIM_NODE,
-                                       dim_edge=8, seed=11)
-
-
-def _graphs(full):
-    g = DynamicGraph(initial_pool_size=8192, minimum_block_size=8)
-    jg = JGraph(initial_pool_size=8192, minimum_block_size=8)
-    for x in (g, jg):
-        x.add_edges(full.src, full.dst, full.time, full.eid,
-                    add_reverse=True)
-    return g, jg
-
-
-def _models(name, compute_dtype=None, **kw):
-    kw = {**STATIC[name], **kw}
-    cls, jcls = (SAGE, JSAGE) if name == "sage" else (GAT, JGAT)
-    return cls(DIM_NODE, EMBED, compute_dtype=compute_dtype, device="cpu",
-               **kw), \
-        jcls(dim_node=DIM_NODE, dim_embed=EMBED, compute_dtype=compute_dtype,
-             **kw)
-
-
-def _batch(train, i=0):
-    return list(data.get_batches(
-        train, B, data.DstRandEdgeSampler(train.dst, seed=1)))[i]
+STEPS = 4
 
 
 def _static_mfgs(g, jg, b, key):
@@ -117,11 +85,12 @@ def _static_mfgs(g, jg, b, key):
 
     mfgs = sampling.sample_hops(g.device_graph("cpu"),
                                 torch.from_numpy(roots), torch.from_numpy(ts),
-                                fanouts=list(FANOUTS), strategy="uniform",
-                                draw=draw)
+                                fanouts=list(STATIC_FANOUTS),
+                                strategy="uniform", draw=draw)
     jdg = jg.device_graph()
     jmfgs = jsampling.sample_hops(jdg, jnp.asarray(roots, jnp.int32),
-                                  jnp.asarray(ts), fanouts=list(FANOUTS),
+                                  jnp.asarray(ts),
+                                  fanouts=list(STATIC_FANOUTS),
                                   strategy="uniform", key=key,
                                   search_iters=jdg.search_iters)
     for a, w in zip(mfgs, jmfgs):
@@ -160,9 +129,9 @@ def test_static_layer_matches_flax(layer):
     """One layer over a uniform static sample of the 192 roots of the last,
     padded batch (fanout 4; padded roots have no neighbour), f32: SAGEConv
     in each aggregator, GATConv with two heads."""
-    train, _, _, full, nf, _ = _stream()
-    g, jg = _graphs(full)
-    b = _batch(train, -1)
+    train, _, _, full, nf, _ = _static_stream()
+    g, jg = _static_graphs(full)
+    b = _static_batch(train, -1)
     assert b.num_valid < B
     mfgs, jmfgs = _static_mfgs(g, jg, b, jax.random.PRNGKey(3))
     mfgs, jmfgs = mfgs[-1:], jmfgs[-1:]              # the outermost layer
@@ -189,10 +158,11 @@ def test_static_layer_matches_flax(layer):
 
 def test_gat_last_layer_of_two_heads_matches_flax():
     """A last GAT layer of H = 2 takes the mean over its heads."""
-    train, _, _, full, nf, _ = _stream()
-    g, jg = _graphs(full)
-    mfgs, jmfgs = _static_mfgs(g, jg, _batch(train), jax.random.PRNGKey(4))
-    model, jmodel = _models("gat", attn_head=(2, 2))
+    train, _, _, full, nf, _ = _static_stream()
+    g, jg = _static_graphs(full)
+    mfgs, jmfgs = _static_mfgs(g, jg, _static_batch(train),
+                               jax.random.PRNGKey(4))
+    model, jmodel = _static_models("gat", attn_head=(2, 2))
     jnfs = jfetch_features(jmfgs, jnp.asarray(nf), None, DIM_NODE)[0]
     params = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jmfgs,
                                   jnfs)["params"]
@@ -216,15 +186,15 @@ def test_gat_last_layer_of_two_heads_matches_flax():
 def test_static_logits_and_gradients_match_jax(jax_runs, name, cd):
     """One training forward and backward (dropout 0) on a uniform static
     sample: logits, loss and every parameter's gradient."""
-    train, _, _, full, nf, ef = _stream()
-    g, jg = _graphs(full)
-    model, jmodel = _models(name, cd)
+    train, _, _, full, nf, ef = _static_stream()
+    g, jg = _static_graphs(full)
+    model, jmodel = _static_models(name, cd)
     # the unstepped state of ``jax_runs``' f32 trainer; its parameter tree
     # is the bf16 model's too (parameters stay f32)
-    jtrainer = JTrainer(jmodel, fanouts=list(FANOUTS), is_static=True,
+    jtrainer = JTrainer(jmodel, fanouts=list(STATIC_FANOUTS), is_static=True,
                         layer_dedup=None)
     jstate = jax_runs[name]["state0"]
-    b = _batch(train, 1)
+    b = _static_batch(train, 1)
     mfgs, jmfgs = _static_mfgs(g, jg, b, jax.random.PRNGKey(1))
     jnfs, jefs = jfetch_features(jmfgs, jnp.asarray(nf), None, DIM_NODE)
     run = jax.jit(jtrainer._run_model, static_argnums=(5,))
@@ -264,12 +234,12 @@ def jax_runs():
     """Per model: the JAX padded static trainer (recent sampling, f32,
     dropout 0), its initial state and parameters, and its losses and
     parameters after each of STEPS train steps."""
-    train, _, _, full, nf, ef = _stream()
-    _, jg = _graphs(full)
+    train, _, _, full, nf, ef = _static_stream()
+    _, jg = _static_graphs(full)
     out = {}
     for name in STATIC:
-        model, jmodel = _models(name)
-        jtrainer = JTrainer(jmodel, fanouts=list(FANOUTS),
+        model, jmodel = _static_models(name)
+        jtrainer = JTrainer(jmodel, fanouts=list(STATIC_FANOUTS),
                             sample_strategy="recent", lr=1e-4,
                             is_static=True, layer_dedup=None)
         jdg = jg.device_graph()
@@ -289,12 +259,13 @@ def jax_runs():
 
 
 def _port_run(name, params0, layer_dedup):
-    train, _, _, full, nf, ef = _stream()
-    g, _ = _graphs(full)
-    model = _models(name)[0]
+    train, _, _, full, nf, ef = _static_stream()
+    g, _ = _static_graphs(full)
+    model = _static_models(name)[0]
     load_flax_params(model, params0)
-    trainer = Trainer(model, fanouts=list(FANOUTS), sample_strategy="recent",
-                      lr=1e-4, layer_dedup=layer_dedup, is_static=True,
+    trainer = Trainer(model, fanouts=list(STATIC_FANOUTS),
+                      sample_strategy="recent", lr=1e-4,
+                      layer_dedup=layer_dedup, is_static=True,
                       device="cpu")
     dg = g.device_graph("cpu")
     state = trainer.init_state(g.max_vertex_id() + 1)
@@ -352,15 +323,15 @@ def test_static_calibration_matches_jax(name):
     its timestamps shifted across the stream) all sample at the static
     timestamp, so they are one batch; the fractions and the ladder are
     JAX's."""
-    train, _, _, full, nf, ef = _stream()
-    g, jg = _graphs(full)
-    model, jmodel = _models(name)
-    trainer = Trainer(model, fanouts=list(FANOUTS), sample_strategy="recent",
-                      is_static=True, device="cpu")
-    jtrainer = JTrainer(jmodel, fanouts=list(FANOUTS),
+    train, _, _, full, nf, ef = _static_stream()
+    g, jg = _static_graphs(full)
+    model, jmodel = _static_models(name)
+    trainer = Trainer(model, fanouts=list(STATIC_FANOUTS),
+                      sample_strategy="recent", is_static=True, device="cpu")
+    jtrainer = JTrainer(jmodel, fanouts=list(STATIC_FANOUTS),
                         sample_strategy="recent", is_static=True)
     assert not trainer._calibrated and not jtrainer._calibrated
-    b = _batch(train, 2)
+    b = _static_batch(train, 2)
     jdg = jg.device_graph()
     ts = np.asarray(b.ts, np.float32)
     t_hi, t_b = float(np.asarray(jdg.e_ts).max()), float(ts.max())
@@ -386,13 +357,14 @@ def test_static_weights_round_trip(jax_runs, case):
     The trees of SAGE (mean) and GAT are ``jax_runs``' initial ones."""
     name = "gat" if case == "gat" else "sage"
     kw = {} if case == "gat" else dict(aggregator=case)
-    model, jmodel = _models(name, **kw)
+    model, jmodel = _static_models(name, **kw)
     if case in ("mean", "gat"):
         tree = jax_runs[name]["params0"]
     else:
-        train, _, _, full, nf, _ = _stream()
-        g, jg = _graphs(full)
-        _, jmfgs = _static_mfgs(g, jg, _batch(train), jax.random.PRNGKey(0))
+        train, _, _, full, nf, _ = _static_stream()
+        g, jg = _static_graphs(full)
+        _, jmfgs = _static_mfgs(g, jg, _static_batch(train),
+                                jax.random.PRNGKey(0))
         jnfs = jfetch_features(jmfgs, jnp.asarray(nf), None, DIM_NODE)[0]
         tree = jax.tree.map(np.asarray, jax.jit(jmodel.init)(
             jax.random.PRNGKey(0), jmfgs, jnfs)["params"])
@@ -526,15 +498,15 @@ def test_tgat_with_node_input_matches_jax():
     """TGAT whose first layer takes 16-dim node features: logits, loss and
     gradients of one training forward and backward on a uniform sample
     (f32, dropout 0)."""
-    train, _, _, full, nf, ef = _stream()
-    g, jg = _graphs(full)
+    train, _, _, full, nf, ef = _static_stream()
+    g, jg = _static_graphs(full)
     cfg = dict(dim_node=DIM_NODE, dim_edge=8, dim_time=8, dim_embed=EMBED,
                num_layers=2, num_snapshots=1, att_head=2, dropout=0.0,
                att_dropout=0.0, use_memory=False)
-    jtrainer = JTrainer(JDGNN(**cfg), fanouts=list(FANOUTS),
+    jtrainer = JTrainer(JDGNN(**cfg), fanouts=list(STATIC_FANOUTS),
                         sample_strategy="uniform", layer_dedup=None)
     jdg = jg.device_graph()
-    b = _batch(train, 1)
+    b = _static_batch(train, 1)
     key = jax.random.PRNGKey(6)
     jmfgs = jtrainer._sample(jdg, jnp.asarray(b.target_nodes, jnp.int32),
                              jnp.asarray(b.ts), key)
@@ -550,8 +522,9 @@ def test_tgat_with_node_input_matches_jax():
         None, n))
     jloss, jpos, _, _, jgrads = run(params, jmfgs, jefs, jvalid_mask(b),
                                     jnfs)
-    trainer = Trainer(model, fanouts=list(FANOUTS), sample_strategy="uniform",
-                      layer_dedup=None, device="cpu")
+    trainer = Trainer(model, fanouts=list(STATIC_FANOUTS),
+                      sample_strategy="uniform", layer_dedup=None,
+                      device="cpu")
     trainer._uniform = lambda gen, shape, n=iter(range(2)): \
         torch.from_numpy(np.array(jax.random.uniform(
             jax.random.fold_in(key, next(n)), shape, dtype=jnp.float32)))
@@ -581,9 +554,7 @@ def _tgn_node_run(dedup_factor):
     over the four train batches of tests/test_torch_train.py: the dedup's
     unique counts, and losses, logits, parameters and memory after each
     step."""
-    from tests.test_torch_slice import _stream as slice_stream
-    from tests.test_torch_train import _batches
-    _, _, _, full, _, ef = slice_stream()
+    _, _, _, full, _, ef = _stream()
     nf = np.random.RandomState(3).randn(int(full.dst.max()) + 1, 12) \
         .astype(np.float32)
     g = DynamicGraph(initial_pool_size=1024, minimum_block_size=4)
@@ -633,12 +604,13 @@ def test_tgn_node_features_dedup_matches_per_instance():
 def test_static_eval_reads_no_edge_features():
     """A static model has no edge features: the trainer gathers none, and
     its eval step runs with the edge-feature table absent."""
-    train, _, _, full, nf, ef = _stream()
-    g, _ = _graphs(full)
-    trainer = Trainer(_models("sage")[0], fanouts=list(FANOUTS),
+    train, _, _, full, nf, ef = _static_stream()
+    g, _ = _static_graphs(full)
+    trainer = Trainer(_static_models("sage")[0], fanouts=list(STATIC_FANOUTS),
                       layer_dedup=None, is_static=True, device="cpu")
     st = trainer.init_state(g.max_vertex_id() + 1)
-    dg, tnf, b = g.device_graph("cpu"), torch.from_numpy(nf), _batch(train)
+    dg, tnf = g.device_graph("cpu"), torch.from_numpy(nf)
+    b = _static_batch(train)
     mfgs, efs, *_ = trainer._inputs(st, dg, torch.from_numpy(ef), b,
                                     node_feats=tnf)
     assert all(e is None for layer in efs for e in layer)

@@ -34,7 +34,6 @@ import pytest
 import torch
 
 from gnnflow_tpu import data as jdata
-from gnnflow_tpu.dynamic_graph import DynamicGraph as JGraph
 from gnnflow_tpu.models.dgnn import DGNN as JDGNN
 from gnnflow_tpu.models.modules import \
     TemporalAttentionLayer as JAttentionLayer
@@ -54,10 +53,9 @@ from gnnflow_tpu_torch.scripts import offline_edge_prediction as entry
 from gnnflow_tpu_torch.train import (Trainer, fetch_features,
                                      link_pred_loss, tier_ladder)
 from gnnflow_tpu_torch.utils.checkpoint import load_checkpoint
-from tests.test_torch_kernels import one_cpu_thread  # noqa: F401
-from tests.test_torch_sampling import FIELDS, _roots, graphs  # noqa: F401
-from tests.test_torch_slice import jax_state
-from tests.test_torch_train import _flat
+from torch_fixtures import graphs, one_cpu_thread  # noqa: F401
+from torch_fixtures import _assert_mfgs_identical, _flat, _roots
+from torch_parity import _hop_stream, _jax_graph, _port_graph, jax_state
 
 CFG = dict(dim_node=0, dim_edge=12, dim_time=16, dim_embed=32, num_layers=2,
            num_snapshots=1, att_head=2, dropout=0.0, att_dropout=0.0,
@@ -67,39 +65,12 @@ B = 240
 STEPS = 3
 
 
-def _stream():
-    return data.make_synthetic_dataset(num_src=120, num_dst=30,
-                                       num_edges=5000, dim_edge=12, seed=5,
-                                       time_scale=1.0)
-
-
-def _port_graph(full):
-    g = DynamicGraph(initial_pool_size=4096, minimum_block_size=8)
-    g.add_edges(full.src, full.dst, full.time, full.eid, add_reverse=True)
-    return g
-
-
-def _jax_graph(full):
-    g = JGraph(initial_pool_size=4096, minimum_block_size=8)
-    g.add_edges(full.src, full.dst, full.time, full.eid, add_reverse=True)
-    return g
-
-
-def _assert_mfgs_identical(got, want):
-    for name in FIELDS:
-        a = getattr(got, name).numpy()
-        b = np.asarray(getattr(want, name))
-        assert np.array_equal(a, b.astype(a.dtype)), name
-        if a.dtype.kind == "f":
-            assert a.tobytes() == b.tobytes(), name
-
-
 @pytest.fixture(scope="module")
 def jax_run():
     """The JAX padded TGAT trainer's initial parameters and its losses
     and parameters after each of STEPS train steps (recent sampling,
     chronological batches)."""
-    train, _, _, full, _, ef = _stream()
+    train, _, _, full, _, ef = _hop_stream()
     jg = _jax_graph(full)
     jdg = jg.device_graph()
     model = JDGNN(**CFG)
@@ -126,7 +97,7 @@ def _port_run(params0, layer_dedup, fanouts=FANOUTS, steps=STEPS,
     """The port's trainer from ``params0`` (None: its own weights) over
     ``steps`` train steps of the batches ``jax_run`` takes: losses,
     parameter trees, and per step the boundaries that took a tier."""
-    train, _, _, full, _, ef = _stream()
+    train, _, _, full, _, ef = _hop_stream()
     model = DGNN(**{**cfg, "num_layers": len(fanouts)}, device="cpu")
     if params0 is not None:
         load_flax_params(model, params0)
@@ -225,7 +196,7 @@ def test_uniform_picks_are_uniform():
 # ---- (c), (d): the attention layer and the model --------------------------
 
 def test_attention_without_node_input_matches_flax():
-    train, _, _, full, _, ef = _stream()
+    train, _, _, full, _, ef = _hop_stream()
     g = _port_graph(full)
     roots = np.concatenate([train.src[:300], train.dst[:300]])
     ts = np.tile(train.time[:300], 2).astype(np.float32)
@@ -260,7 +231,7 @@ def test_attention_without_node_input_matches_flax():
 def test_tgat_logits_and_gradients_match_jax(jax_run):
     """One training forward and backward at dropout 0 on the first batch:
     logits, loss and every parameter's gradient."""
-    train, _, _, full, _, ef = _stream()
+    train, _, _, full, _, ef = _hop_stream()
     jtrainer, jdg, jef = jax_run["trainer"], jax_run["dg"], jax_run["ef"]
     b = next(iter(data.get_batches(
         train, B, data.DstRandEdgeSampler(train.dst, seed=1))))
@@ -362,7 +333,7 @@ def test_three_layer_layer_dedup_matches_padded():
 
 @pytest.mark.parametrize("fanouts", [(5, 5), (4, 3, 3)])
 def test_tier_ladder_matches_jax_calibrate(fanouts):
-    train, _, _, full, _, ef = _stream()
+    train, _, _, full, _, ef = _hop_stream()
     jtrainer = JTrainer(JDGNN(**{**CFG, "num_layers": len(fanouts)}),
                         fanouts=list(fanouts), sample_strategy="recent")
     model = DGNN(**{**CFG, "num_layers": len(fanouts)}, device="cpu")
@@ -398,7 +369,7 @@ def test_tier_ladder_arithmetic(fracs, layers, want):
 
 
 def test_tier_take_stats_and_recalibration_on_forced_fallback():
-    train, _, _, full, _, ef = _stream()
+    train, _, _, full, _, ef = _hop_stream()
     model = DGNN(**CFG, device="cpu")
     trainer = Trainer(model, fanouts=list(FANOUTS), device="cpu")
     g = _port_graph(full)

@@ -24,10 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from gnnflow_tpu import data as jdata
 from gnnflow_tpu.train import _valid_mask as jvalid_mask
 from gnnflow_tpu.train import fetch_features as jfetch_features
-from gnnflow_tpu_torch import data
 from gnnflow_tpu_torch.dynamic_graph import DynamicGraph
 from gnnflow_tpu_torch.models.dgnn import DGNN
 from gnnflow_tpu_torch.models.modules import dropout
@@ -35,13 +33,10 @@ from gnnflow_tpu_torch.models.weights import (flax_param_tree,
                                               load_flax_params)
 from gnnflow_tpu_torch.ops.attention_fused import neighborhood_attention_ref
 from gnnflow_tpu_torch.train import Trainer, link_pred_loss
-from tests.test_torch_kernels import one_cpu_thread  # noqa: F401
-from tests.test_torch_slice import B, _stream, interpret_attention  # noqa: F401
-from tests.test_torch_slice import _jax_side
-
-CFG = dict(dim_node=0, dim_edge=6, dim_time=8, dim_embed=8, num_layers=1,
-           num_snapshots=1, att_head=2, dropout=0.0, att_dropout=0.0,
-           use_memory=True, dim_memory=8)
+from torch_fixtures import one_cpu_thread  # noqa: F401
+from torch_fixtures import CFG, _flat, _stream
+from torch_parity import interpret_attention  # noqa: F401
+from torch_parity import _assert_memory_equal, _batches, _jax_side
 
 
 def _port_side(full, params, cfg=CFG, compute_dtype=None, seed=0):
@@ -53,34 +48,6 @@ def _port_side(full, params, cfg=CFG, compute_dtype=None, seed=0):
     trainer = Trainer(model, fanouts=[4], device="cpu")
     return trainer, trainer.init_state(g.max_vertex_id() + 1, seed), \
         g.device_graph("cpu")
-
-
-def _flat(tree, prefix=()):
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(_flat(v, prefix + (k,)))
-        else:
-            out[prefix + (k,)] = np.asarray(v)
-    return out
-
-
-def _batches(full, n_edges=230):
-    """Batches of 64, 64, 64 and 38 (the last padded), ours and JAX's."""
-    stream = full[:n_edges]
-    return (data.get_batches(stream, B, data.DstRandEdgeSampler(full.dst, 1)),
-            jdata.get_batches(stream, B,
-                              jdata.DstRandEdgeSampler(full.dst, 1)))
-
-
-def _assert_memory_equal(m, jm):
-    for name in ("node_memory", "mailbox"):
-        np.testing.assert_allclose(getattr(m, name).numpy(),
-                                   np.asarray(getattr(jm, name)),
-                                   rtol=1e-4, atol=1e-4, err_msg=name)
-    for name in ("node_memory_ts", "mailbox_ts"):
-        assert np.array_equal(getattr(m, name).numpy(),
-                              np.asarray(getattr(jm, name))), name
 
 
 def test_first_step_gradients_match_jax(interpret_attention):

@@ -65,12 +65,10 @@ from gnnflow_tpu_torch.ops import sampling
 from gnnflow_tpu_torch.ops.gru_gather import (gru_node_gather,
                                               gru_node_gather_ref)
 from gnnflow_tpu_torch.train import Trainer, link_pred_loss
-from tests.test_torch_apan import (_filled_memory, _jax_memory, _mfgs)
-from tests.test_torch_kernels import one_cpu_thread  # noqa: F401
-from tests.test_torch_online import _assert_stores_equal
-from tests.test_torch_slice import B, _stream, jax_state
-from tests.test_torch_tgat import _assert_mfgs_identical
-from tests.test_torch_train import CFG, _assert_memory_equal, _flat
+from torch_fixtures import one_cpu_thread  # noqa: F401
+from torch_fixtures import B, CFG, _assert_mfgs_identical, _flat, _stream
+from torch_parity import (_assert_memory_equal, _assert_stores_equal,
+                          _filled_memory, _jax_memory, _mfgs, jax_state)
 
 R = 3                                  # negatives per edge
 
